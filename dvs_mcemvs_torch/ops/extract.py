@@ -1,0 +1,147 @@
+"""Depth-map extraction from a DSI: collapse, threshold, median, border.
+
+Port of the device part of dvs_mcemvs_tpu/ops/extract.py (the reference's
+getDepthMapFromDSI): confidence normalization, the adaptive Gaussian
+threshold, the masked Huang median as a rank binary search, border removal
+and index-to-depth.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from . import grid as gridops
+from .depth_vector import DepthVector
+
+
+@dataclasses.dataclass(frozen=True)
+class DepthMapOptions:
+    """Mirrors EMVS::OptionsDepthMap."""
+
+    adaptive_threshold_kernel_size: int = 5
+    adaptive_threshold_c: float = 5.0
+    median_filter_size: int = 5
+    full_sequence: bool = False
+    save_conf_stats: bool = False
+    max_confidence: float = 0.0
+    rv_pos: float = 0.0
+    collapse_method: int = -1  # -1 = argmax of votes (the only one ported)
+
+
+class DepthMapResult(NamedTuple):
+    depth: torch.Tensor        # (H, W) float32 metric depth (semi-dense values)
+    confidence: torch.Tensor   # (H, W) float32 raw vote confidence
+    mask: torch.Tensor         # (H, W) uint8 semi-dense support
+    depth_dense: Optional[torch.Tensor]  # inpainted dense depth (None here)
+    depth_indices: torch.Tensor  # (H, W) int32 filtered depth cell indices
+
+
+def normalize_confidence(confidence: torch.Tensor,
+                         max_confidence: float = 0.0) -> torch.Tensor:
+    """Min-max normalize to [0, 255] and round half to even (cvRound), with
+    the reference's (0,0)-pixel pinning when `max_confidence > 0`."""
+    conf = confidence
+    if max_confidence > 0:
+        conf = conf.clone()
+        conf[0, 0] = max_confidence
+    cmin = torch.min(conf)
+    cmax = torch.max(conf)
+    scale = 255.0 / torch.clamp(cmax - cmin, min=1e-30)
+    norm = (conf - cmin) * scale
+    norm[0, 0] = 0.0
+    return torch.clamp(torch.round(norm), 0.0, 255.0)
+
+
+def adaptive_threshold_mask(conf_u8: torch.Tensor, kernel_size: int,
+                            c: float) -> torch.Tensor:
+    """mask = conf > round(gaussian_mean(conf)) - round(-c), OpenCV's
+    adaptiveThreshold on a u8 image (replicated border)."""
+    k1 = gridops.gaussian_kernel_1d(kernel_size, sigma=-1.0)
+    mean = gridops.sep_conv2d_same(conf_u8, k1, k1, border="replicate")
+    mean_u8 = torch.round(mean)
+    ci = float(np.round(np.float32(-c)))
+    return (conf_u8 > (mean_u8 - ci)).to(torch.uint8)
+
+
+def _masked_median_bsearch(img: torch.Tensor, mask: torch.Tensor,
+                           patch_size: int, levels: int) -> torch.Tensor:
+    """Huang's masked lower median as a data-parallel rank binary search over
+    the patch_size^2 shifted neighbour planes (int16; masked-out neighbours
+    get sentinel `levels`, out-of-image ones `levels+1`)."""
+    H, W = img.shape
+    m = mask > 0
+    v = torch.clamp(img.to(torch.int32), 0, levels - 1).to(torch.int16)
+    v = torch.where(m, v, torch.full_like(v, levels))
+    p = patch_size // 2
+    planes = []
+    for dy in range(-p, p + 1):
+        for dx in range(-p, p + 1):
+            s = torch.full((H, W), levels + 1, dtype=torch.int16, device=img.device)
+            ys = slice(max(0, -dy), min(H, H - dy))
+            xs = slice(max(0, -dx), min(W, W - dx))
+            src_ys = slice(max(0, dy), min(H, H + dy))
+            src_xs = slice(max(0, dx), min(W, W + dx))
+            s[ys, xs] = v[src_ys, src_xs]
+            planes.append(s)
+    V = torch.stack(planes)
+    n = torch.sum((V < levels).to(torch.int32), dim=0)
+    rank = (n + 1) // 2
+    lo = torch.zeros((H, W), dtype=torch.int32, device=img.device)
+    hi = torch.full((H, W), levels - 1, dtype=torch.int32, device=img.device)
+    for _ in range(int(np.ceil(np.log2(max(levels, 2))))):
+        mid = (lo + hi) >> 1
+        cnt = torch.sum((V <= mid[None].to(torch.int16)).to(torch.int32), dim=0)
+        ge = cnt >= rank
+        hi = torch.where(ge, mid, hi)
+        lo = torch.where(ge, lo, mid + 1)
+    return torch.where(n > 0, lo, torch.zeros_like(lo)).to(torch.float32)
+
+
+def masked_median_filter(img_u8: torch.Tensor, mask: torch.Tensor,
+                         patch_size: int, levels: int) -> torch.Tensor:
+    """Masked lower median over the (patch x patch) neighbourhood of integer
+    values in [0, levels); pixels with no masked neighbour get 0.  Only the
+    histogram path (levels <= 256) is ported."""
+    if levels > 256:
+        raise ValueError(f"levels={levels}: only the <= 256-level median is ported")
+    return _masked_median_bsearch(img_u8, mask, patch_size, levels)
+
+
+def remove_mask_boundary(mask: torch.Tensor, border_size: int) -> torch.Tensor:
+    """Zero the mask where x <= b, x >= W-b, y <= b or y >= H-b."""
+    H, W = mask.shape
+    ys = torch.arange(H, device=mask.device)[:, None]
+    xs = torch.arange(W, device=mask.device)[None, :]
+    keep = (xs > border_size) & (xs < W - border_size) & \
+           (ys > border_size) & (ys < H - border_size)
+    return torch.where(keep, mask, torch.zeros_like(mask))
+
+
+def extract_from_collapsed(confidence: torch.Tensor, depth_indices: torch.Tensor,
+                           depth_vec: DepthVector,
+                           options: DepthMapOptions) -> DepthMapResult:
+    """Extraction chain after the Z-collapse: confidence normalization,
+    adaptive threshold, masked median of the indices, border removal,
+    closed-form index -> depth."""
+    conf_u8 = normalize_confidence(confidence, options.max_confidence)
+    mask = adaptive_threshold_mask(
+        conf_u8, options.adaptive_threshold_kernel_size, options.adaptive_threshold_c)
+    filtered_idx = masked_median_filter(
+        depth_indices.to(torch.float32), mask, options.median_filter_size,
+        levels=depth_vec.n).to(torch.int32)
+    border = max(options.adaptive_threshold_kernel_size // 2, 1)
+    mask = remove_mask_boundary(mask, border)
+    depth = depth_vec.depth_at_index(torch.clamp(filtered_idx, 0, depth_vec.n - 1))
+    return DepthMapResult(depth=depth, confidence=confidence, mask=mask,
+                          depth_dense=None, depth_indices=filtered_idx)
+
+
+def get_depth_map_from_dsi(dsi: torch.Tensor, depth_vec: DepthVector,
+                           options: DepthMapOptions) -> DepthMapResult:
+    """Collapse a (Z, H, W) DSI and run the extraction chain."""
+    confidence, depth_indices = gridops.collapse(dsi, options.collapse_method)
+    return extract_from_collapsed(confidence, depth_indices, depth_vec, options)

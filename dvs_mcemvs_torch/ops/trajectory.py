@@ -1,0 +1,66 @@
+"""Time-indexed SE(3) trajectory with vectorized linear interpolation.
+
+Port of dvs_mcemvs_tpu/ops/trajectory.py: a sorted pose buffer queried by a
+batched `searchsorted` + batched SE(3) lerp.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import se3
+from .se3 import SE3
+
+
+class Trajectory(NamedTuple):
+    """Sorted pose buffer: ts (N,) float32 seconds, poses: SE3 with batch (N,)."""
+
+    ts: torch.Tensor
+    poses: SE3
+
+    @property
+    def n(self) -> int:
+        return int(self.ts.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.ts.device
+
+
+def from_arrays(ts, qs, trans, device: Optional[torch.device] = None) -> Trajectory:
+    """Build from arrays; ts (N,), qs (N,4) wxyz, trans (N,3); sorted by time."""
+    ts = torch.as_tensor(np.asarray(ts, np.float32), device=device)
+    order = torch.argsort(ts, stable=True)
+    q = se3.quat_normalize(torch.as_tensor(np.asarray(qs, np.float32), device=device)[order])
+    t = torch.as_tensor(np.asarray(trans, np.float32), device=device)[order]
+    return Trajectory(ts[order], SE3(q, t))
+
+
+def pose_at(traj: Trajectory, t) -> Tuple[SE3, torch.Tensor]:
+    """Interpolated pose at query times t (...,).
+
+    Returns (SE3 with the batch shape of t, valid mask).  Queries outside
+    [ts[0], ts[-1]] are invalid (no extrapolation); their pose is clamped to
+    the nearest segment and must be masked by callers.
+    """
+    t = torch.as_tensor(t, dtype=traj.ts.dtype, device=traj.ts.device)
+    # upper_bound(t): first index with ts > t.
+    it1 = torch.searchsorted(traj.ts, t.reshape(-1), right=True).reshape(t.shape)
+    valid = (it1 > 0) & (it1 < traj.n)
+    i1 = torch.clamp(it1, 1, traj.n - 1)
+    i0 = i1 - 1
+    t0, t1 = traj.ts[i0], traj.ts[i1]
+    T0 = SE3(traj.poses.q[i0], traj.poses.t[i0])
+    T1 = SE3(traj.poses.q[i1], traj.poses.t[i1])
+    alpha = (t - t0) / torch.clamp(t1 - t0, min=1e-12)
+    return se3.interpolate(T0, T1, alpha), valid
+
+
+def apply_right(traj: Trajectory, T: SE3) -> Trajectory:
+    """Right-compose every pose with a fixed transform: T_i <- T_i * T."""
+    q = T.q.expand(traj.poses.q.shape)
+    t = T.t.expand(traj.poses.t.shape)
+    return Trajectory(traj.ts, se3.compose(traj.poses, SE3(q, t)))

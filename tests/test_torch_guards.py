@@ -1,0 +1,115 @@
+"""Guards of the PyTorch port: it never imports JAX, its kernel wrappers
+never launch (or count) on CPU tensors, and chip_smoke.py refuses to run
+without a CUDA device instead of falling back to the CPU."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+from _torch_util import to_np
+
+from dvs_mcemvs_torch.kernels import binning, resample
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SLICE_MODULES = [
+    "dvs_mcemvs_torch", "dvs_mcemvs_torch.device", "dvs_mcemvs_torch.convert",
+    "dvs_mcemvs_torch.mapper", "dvs_mcemvs_torch.pipeline",
+    "dvs_mcemvs_torch.ops.se3", "dvs_mcemvs_torch.ops.trajectory",
+    "dvs_mcemvs_torch.ops.camera", "dvs_mcemvs_torch.ops.depth_vector",
+    "dvs_mcemvs_torch.ops.voting", "dvs_mcemvs_torch.ops.voting_hist",
+    "dvs_mcemvs_torch.ops.grid", "dvs_mcemvs_torch.ops.extract",
+    "dvs_mcemvs_torch.kernels._build", "dvs_mcemvs_torch.kernels.binning",
+    "dvs_mcemvs_torch.kernels.resample", "dvs_mcemvs_torch.utils.synthetic",
+    "dvs_mcemvs_torch.utils.golden",
+]
+
+
+def _clean_env():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    return env
+
+
+def test_port_never_imports_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
+            "import chip_smoke\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'dvs_mcemvs_tpu')))\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_clean_env(),
+                   check=True, timeout=120)
+
+
+def test_cpu_calls_launch_no_kernel():
+    """A CPU tensor runs the plain version: no launch, no count."""
+    for fn in (binning.bin_events, resample.banded_resample_sum,
+               resample.banded_resample_fanin):
+        fn.launches = 0
+    rng = np.random.default_rng(30)
+    hx = torch.as_tensor(rng.uniform(0, 31, (2, 64)), dtype=torch.float32)
+    hy = torch.as_tensor(rng.uniform(0, 15, (2, 64)), dtype=torch.float32)
+    hist = binning.bin_events(hx, hy, torch.ones(2, 64), hs=16, ws=32, binary_w=True,
+                              out_dtype=torch.bfloat16)
+    ones = torch.ones(2, 2)
+    resample.banded_resample_sum(hist, ones, ones, ones, ones, out_h=8, out_w=16,
+                                 blocked=False)
+    resample.banded_resample_fanin(hist.reshape(1, 2, 16, 32), ones[None], ones[None],
+                                   ones[None], ones[None], np.array([[0, 0]]),
+                                   n_out=1, out_h=8, out_w=16)
+    assert binning.bin_events.launches == 0
+    assert resample.banded_resample_sum.launches == 0
+    assert resample.banded_resample_fanin.launches == 0
+
+
+@pytest.mark.parametrize("where", ["checkout", "alone"])
+def test_chip_smoke_refuses_without_cuda(tmp_path, where):
+    """No CUDA device (or, alone in a directory, no port): a nonzero exit
+    within seconds and no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    cwd = REPO
+    if where == "alone":
+        shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+        cwd = str(tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+
+
+def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
+    """chip_smoke.py's kernel and chunk phases at a tiny size on CPU tensors:
+    every comparison runs (plain version against itself), and the chunk
+    phase refuses a main path that launched no kernel."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, iters: (fn(), 0.0)[1])
+    cpu = torch.device("cpu")
+    res = chip_smoke.kernel_phase(cpu, G=4, E=1024, hs=64, ws=128, Ho=48, Wo=64, Z=12,
+                                  S=4, K_sweep=2, K_wide=32, iters=1)
+    assert set(res) == {"bin_events", "banded_resample_sum", "banded_resample_fanin"}
+    assert all(r["max_abs_err"] == 0.0 for r in res.values())
+    workload = chip_smoke.build_workload(cpu, n_events=16384, width=96, height=64,
+                                         dim_z=20, n_pts=2000)
+    with pytest.raises(AssertionError, match="not launched"):
+        chip_smoke.chunk_phase(cpu, workload, runs=1)
+
+
+def test_fanin_writes_each_plane_once():
+    """Duplicate out_idx entries become one item per plane: its last writer."""
+    blocks = torch.zeros(2, 1, 8, 16)
+    blocks[0, 0, 2, 3] = 1.0
+    blocks[1, 0, 5, 7] = 2.0
+    z = torch.zeros(2, 3, 1)
+    s = torch.ones(2, 3, 1)
+    out = resample.banded_resample_fanin(blocks, s, z, s, z, np.array([[0, 1, 1], [2, 2, 2]]),
+                                         n_out=4, out_h=8, out_w=16)
+    out = to_np(out)
+    assert out[0, 2, 3] == 1.0 and out[1, 2, 3] == 1.0 and out[2, 5, 7] == 2.0
+    assert not out[3].any()      # a plane no item writes stays zero

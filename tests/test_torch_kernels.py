@@ -1,0 +1,147 @@
+"""The port's kernel wrappers (their plain PyTorch versions, on the CPU)
+against the JAX package's Pallas kernels in interpret mode.
+
+Same numpy inputs through both.  Tolerance, bf16-level: every bin within
+2e-2 of its own value plus 1e-3 of the largest bin, and the total mass
+within 1e-3.  Both sides round taps and intermediates to bf16 at the same
+points and accumulate in f32, but in another order: a sum that lands on
+the other side of a bf16 rounding boundary moves its bin by one bf16 step
+(2^-8 relative), and such steps compound at most twice (y stage, output).
+"""
+
+import numpy as np
+import pytest
+import torch
+from _torch_util import to_np
+
+import jax.numpy as jnp
+from dvs_mcemvs_tpu.kernels import binning_pallas as jbin, resample_pallas as jres
+from dvs_mcemvs_torch.kernels import binning as tbin, resample as tres
+
+JAX_DTYPES = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+def assert_bf16_close(got, want):
+    got = to_np(got).astype(np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    scale = np.abs(want).max()
+    assert scale > 0
+    excess = np.abs(got - want) - (2e-2 * np.abs(want) + 1e-3 * scale)
+    assert excess.max() <= 0, f"bin off by {excess.max() / scale:.3g} of max over tolerance"
+    assert abs(got.sum() - want.sum()) <= 1e-3 * abs(want.sum())
+
+
+def _events(rng, G, E, hs, ws, binary):
+    hx = rng.uniform(0, ws - 1, (G, E)).astype(np.float32)
+    hy = rng.uniform(0, hs - 1, (G, E)).astype(np.float32)
+    hx[:, :8] = ws - 1          # grid edges: the +1 tap falls off the grid
+    hy[:, 8:16] = hs - 1
+    hx[:, 16:24] = np.round(hx[:, 16:24])   # integer coordinates
+    if binary:
+        w = (rng.uniform(size=(G, E)) > 0.2).astype(np.float32)
+    else:
+        w = rng.uniform(0, 1, (G, E)).astype(np.float32)
+        w[rng.uniform(size=(G, E)) < 0.2] = 0.0
+    return hx, hy, w
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("binary", [False, True], ids=["weighted", "binary"])
+def test_binning_matches_pallas(binary, out_dtype):
+    rng = np.random.default_rng(10)
+    G, E, hs, ws = 3, 2500, 128, 256
+    hx, hy, w = _events(rng, G, E, hs, ws, binary)
+    want = jbin.bin_events_pallas_windowed(
+        jnp.asarray(hx), jnp.asarray(hy), jnp.asarray(w), hs=hs, ws=ws,
+        binary_w=binary, out_dtype=JAX_DTYPES[out_dtype], interpret=True)
+    got = tbin.bin_events(torch.as_tensor(hx), torch.as_tensor(hy), torch.as_tensor(w),
+                          hs=hs, ws=ws, binary_w=binary, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == (G, hs, ws)
+    assert_bf16_close(got, np.asarray(want, np.float32))
+
+
+def test_binning_rejects_fractional_binary_weights():
+    w = torch.tensor([[1.0, 0.5]])
+    with pytest.raises(ValueError, match="0 or 1"):
+        tbin.bin_events(torch.zeros(1, 2), torch.zeros(1, 2), w, hs=4, ws=4,
+                        binary_w=True)
+
+
+def _maps(rng, shape, scale, shift):
+    s = (scale + rng.uniform(-0.02, 0.02, shape)).astype(np.float32)
+    t = (shift + rng.uniform(-3, 3, shape)).astype(np.float32)
+    return s, t
+
+
+# (scale, scale_min): one single-strip map and one whose band is wider than
+# the TPU kernel's strip, which runs extra strips there.
+SCALES = [(1.0, 2.0 / 3.0), (0.45, 2.0 / 3.0)]
+
+
+@pytest.mark.parametrize("scale,scale_min", SCALES, ids=["in-band", "below-scale-min"])
+@pytest.mark.parametrize("mode", ["sweep", "blocked", "src"])
+def test_resample_sum_matches_pallas(mode, scale, scale_min):
+    rng = np.random.default_rng(11)
+    N, K, hs, ws, Ho, Wo = 3, 2, 64, 256, 48, 128
+    G = {"sweep": K, "blocked": N * K, "src": 5}[mode]
+    hist = rng.uniform(0, 4, (G, hs, ws)).astype(np.float32)
+    hist_j = jnp.asarray(hist, jnp.bfloat16)
+    hist_t = torch.as_tensor(hist).to(torch.bfloat16)
+    sy, ty = _maps(rng, (N, K), scale, 4.0)
+    sx, tx = _maps(rng, (N, K), scale, 8.0)
+    src = rng.integers(0, G, (N, K)).astype(np.int32) if mode == "src" else None
+    out_dtype = torch.float32 if mode == "sweep" else torch.bfloat16
+    want = jres.banded_resample_sum(
+        hist_j, *(jnp.asarray(a) for a in (sy, ty, sx, tx)), out_h=Ho, out_w=Wo,
+        blocked=mode == "blocked", scale_min=scale_min, interpret=True,
+        src=None if src is None else jnp.asarray(src), out_dtype=JAX_DTYPES[out_dtype])
+    got = tres.banded_resample_sum(
+        hist_t, *(torch.as_tensor(a) for a in (sy, ty, sx, tx)), out_h=Ho, out_w=Wo,
+        blocked=mode == "blocked", src=src, out_dtype=out_dtype)
+    assert got.dtype == out_dtype
+    assert_bf16_close(got, np.asarray(want, np.float32))
+
+
+def test_resample_sum_float32_sources():
+    """f32 sources keep f32 taps and no intermediate rounding."""
+    rng = np.random.default_rng(12)
+    N, K, hs, ws, Ho, Wo = 2, 2, 64, 128, 40, 128
+    hist = rng.uniform(0, 4, (K, hs, ws)).astype(np.float32)
+    sy, ty = _maps(rng, (N, K), 1.0, 2.0)
+    sx, tx = _maps(rng, (N, K), 1.0, 2.0)
+    want = jres.banded_resample_sum(
+        jnp.asarray(hist), *(jnp.asarray(a) for a in (sy, ty, sx, tx)), out_h=Ho,
+        out_w=Wo, blocked=False, interpret=True)
+    got = tres.banded_resample_sum(
+        torch.as_tensor(hist), *(torch.as_tensor(a) for a in (sy, ty, sx, tx)),
+        out_h=Ho, out_w=Wo, blocked=False)
+    np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("K,scale", [(2, 1.0), (2, 0.45), (32, 1.0)],
+                         ids=["in-band", "below-scale-min", "K32"])
+def test_resample_fanin_matches_pallas(K, scale):
+    """Ragged segments padded with clamped duplicate plane indices, as the
+    plane sweep builds them.  Duplicate steps carry their own (random) maps
+    here, so the port must also keep the TPU grid's last writer."""
+    rng = np.random.default_rng(13)
+    bounds = [0, 3, 5, 7] if K == 2 else [0, 2, 3]
+    S = len(bounds) - 1
+    M = max(bounds[s + 1] - bounds[s] for s in range(S))
+    out_idx = np.stack([np.minimum(bounds[s] + np.arange(M), bounds[s + 1] - 1)
+                        for s in range(S)]).astype(np.int32)
+    hs, ws, Ho, Wo = (64, 256, 48, 128) if K == 2 else (16, 128, 16, 128)
+    blocks = rng.uniform(0, 4, (S, K, hs, ws)).astype(np.float32)
+    sy, ty = _maps(rng, (S, M, K), scale, 4.0)
+    sx, tx = _maps(rng, (S, M, K), scale, 8.0)
+    want = jres.banded_resample_fanin(
+        jnp.asarray(blocks, jnp.bfloat16), *(jnp.asarray(a) for a in (sy, ty, sx, tx)),
+        jnp.asarray(out_idx), n_out=bounds[-1], out_h=Ho, out_w=Wo,
+        scale_min=2.0 / 3.0, interpret=True)
+    got = tres.banded_resample_fanin(
+        torch.as_tensor(blocks).to(torch.bfloat16),
+        *(torch.as_tensor(a) for a in (sy, ty, sx, tx)), out_idx,
+        n_out=bounds[-1], out_h=Ho, out_w=Wo)
+    assert_bf16_close(got, np.asarray(want))

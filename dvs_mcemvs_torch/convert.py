@@ -4,7 +4,9 @@ The system has no learned weights; its state is the per-camera setup, the
 trajectories, the reference-view pose and the intermediates of a chunk.
 Each function takes the JAX package's object (or anything with the same
 fields whose arrays `np.asarray` can read) and returns the port's object on
-`device`.  Nothing here imports JAX: the arrays are read through numpy.
+`device`: the card when it is None (raising when there is none), the CPU
+only when the caller passes `device="cpu"`.  Nothing here imports JAX: the
+arrays are read through numpy.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .device import require_cuda
 from .mapper import Events, Mapper
 from .ops.camera import PinholeCamera
 from .ops.depth_vector import DepthVector
@@ -25,6 +28,8 @@ from .ops.voting import WarpedPackets
 
 def tensor(a, device=None, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """A host or JAX array as a tensor on `device` (a copy, never a view)."""
+    if device is None:
+        device = require_cuda()
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
 

@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` compiles on first use into one shared library with a
 plain C interface, `build/kernels/lib<name>-<hash>.so` under the repository
 root (a git-ignored directory); the hash covers the source and the flags, so
-an edited source is rebuilt.  Nothing is compiled when a module is imported.
+an edited source is rebuilt.  `build` compiles several sources in parallel.
+Nothing is compiled when a module is imported.
 """
 
 from __future__ import annotations
@@ -40,31 +41,51 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, compiled if needed."""
-    if name in _LIBS:
-        return _LIBS[name]
+def _target(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
-    seconds, report = 0.0, ""
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                                  capture_output=True, text=True)
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(*names: str) -> None:
+    """Compile the libraries of `names` that are not built yet, one nvcc per
+    source, all started together, and load them."""
+    jobs = []
+    try:
+        for name in names:
+            out = _target(name)
+            if name in _LIBS or out.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            jobs.append((name, out, tmp, proc, time.perf_counter()))
+        for name, out, tmp, proc, t0 in jobs:
+            _, err = proc.communicate()
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+                raise RuntimeError(f"nvcc failed on {name}.cu:\n{err}")
             os.replace(tmp, out)
-        finally:
+            BUILD_INFO[name] = (time.perf_counter() - t0, err)
+    finally:
+        for _, _, tmp, proc, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
             if os.path.exists(tmp):
                 os.unlink(tmp)
-        seconds, report = time.perf_counter() - t0, proc.stderr
-    _LIBS[name] = ctypes.CDLL(str(out))
-    BUILD_INFO[name] = (seconds, report)
+    for name in names:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(str(_target(name)))
+            BUILD_INFO.setdefault(name, (0.0, ""))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, compiled if needed."""
+    if name not in _LIBS:
+        build(name)
     return _LIBS[name]
 
 

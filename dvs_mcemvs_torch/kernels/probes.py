@@ -1,0 +1,165 @@
+"""Platform probes: the CUDA kernels of csrc/probes.cu and their plain
+PyTorch versions.
+
+The H100 counterparts of the four Pallas probes of scripts/probe_tpu.py
+(`run_c`, `run_e`, `run_f`, `run_d`), which `scripts/probe_gpu.py` times.
+Each computes a defined result at the TPU probe's shapes:
+
+    smem_copy(a)      out = fl(fl(a * 1.0001) * 1.0001)        (1, 576, 896) f32
+    block_step(a)     out = a + 1                              (1, 8, 128) f32
+    hbm_stream(a)     out = sum_g a[g] in f32, in g order      (256, 576, 896) bf16
+    dyn_slice(a)      out[0, r] = sum over steps x offsets q_k of a[0, q_k + r]
+                      for r < qv, in that order; zero below   (1, 576, 896) f32
+
+The TPU's `run_f` and `run_d` add into an output they never initialise;
+here the output starts at zero.  Every sum is a chain of f32 additions in a
+fixed order, so each kernel equals its plain version exactly.  A CPU tensor
+runs the plain version; a CUDA tensor launches the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import _build
+
+_c_void_p, _c_int, _c_int64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+SCALE = float(np.float32(1.0001))   # the f32 constant of run_c
+PASSES, REPS = 64, 4                # run_c: 64 grid steps of R = 4 round trips
+N_BLOCKS = 4096                     # run_e: 4096 grid steps
+QV, N_OFFSETS, STEPS = 168, 20, 64  # run_d: 168-row slices, 20 offsets, 64 steps
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("probes")
+    lib.smem_copy.argtypes = [_c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_void_p]
+    lib.block_step.argtypes = [_c_void_p, _c_void_p, _c_int, _c_int, _c_void_p]
+    lib.hbm_stream.argtypes = [_c_void_p, _c_void_p, _c_int, _c_int64, _c_void_p]
+    lib.dyn_slice.argtypes = [_c_void_p, _c_void_p] + [_c_int] * 5 + [_c_void_p]
+    for fn in (lib.smem_copy, lib.block_step, lib.hbm_stream, lib.dyn_slice):
+        fn.restype = _c_int
+    return lib
+
+
+def _check(a: torch.Tensor, dtype: torch.dtype, multiple: int, what: str) -> bool:
+    """Validate a probe input; True when it lies on a CUDA device."""
+    if a.dtype != dtype or not a.is_contiguous():
+        raise TypeError(f"{what}: input must be contiguous {dtype}, got {a.dtype}")
+    if a.numel() % multiple:
+        raise ValueError(f"{what}: input size {a.numel()} is not a multiple of {multiple}")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {a.device}")
+    if a.device.type == "cuda" and a.data_ptr() % 16:
+        raise ValueError(f"{what}: the kernel loads 16 bytes at a time; input must be "
+                         "16-byte aligned")
+    return a.device.type == "cuda"
+
+
+def _stream(a: torch.Tensor) -> int:
+    return torch.cuda.current_stream(a.device).cuda_stream
+
+
+def offsets(h: int, qv: int = QV, n_offsets: int = N_OFFSETS) -> list:
+    """dyn_slice's row offsets: ((29 k) mod (h - qv)) // 8 * 8, k < n_offsets."""
+    return [((k * 29) % (h - qv)) // 8 * 8 for k in range(n_offsets)]
+
+
+def smem_copy_reference(a: torch.Tensor) -> torch.Tensor:
+    return (a * SCALE) * SCALE
+
+
+def smem_copy(a: torch.Tensor, passes: int = PASSES, reps: int = REPS) -> torch.Tensor:
+    """Stage `a` through shared memory `passes` x `reps` times; returns
+    fl(fl(a * 1.0001) * 1.0001) in a's shape."""
+    if passes < 1 or reps < 1:
+        raise ValueError("passes and reps must be >= 1")
+    if not _check(a, torch.float32, 4, "smem_copy"):
+        return smem_copy_reference(a)
+    out = torch.empty_like(a)
+    if a.numel() == 0:   # nothing to launch
+        return out
+    _build.check(_library().smem_copy(a.data_ptr(), out.data_ptr(), a.numel(), passes,
+                                      reps, _stream(a)), "smem_copy")
+    smem_copy.launches += 1
+    return out
+
+
+def block_step_reference(a: torch.Tensor) -> torch.Tensor:
+    return a + 1.0
+
+
+def block_step(a: torch.Tensor, n_blocks: int = N_BLOCKS) -> torch.Tensor:
+    """`n_blocks` one-warp blocks, each writing out = a + 1 over all of `a`
+    (a small tile: the TPU probe's (1, 8, 128))."""
+    if n_blocks < 1:
+        raise ValueError("n_blocks must be >= 1")
+    if not _check(a, torch.float32, 4, "block_step"):
+        return block_step_reference(a)
+    out = torch.empty_like(a)
+    if a.numel() == 0:
+        return out
+    _build.check(_library().block_step(a.data_ptr(), out.data_ptr(), a.numel(), n_blocks,
+                                       _stream(a)), "block_step")
+    block_step.launches += 1
+    return out
+
+
+def hbm_stream_reference(a: torch.Tensor) -> torch.Tensor:
+    out = torch.zeros((1, *a.shape[1:]), dtype=torch.float32, device=a.device)
+    for g in range(a.shape[0]):
+        out[0] += a[g].to(torch.float32)
+    return out
+
+
+def hbm_stream(a: torch.Tensor) -> torch.Tensor:
+    """(G, ...) bfloat16 -> (1, ...) float32 sum over G, added in g order."""
+    if a.ndim < 2 or a[0].numel() % 8:
+        raise ValueError(f"hbm_stream: input must be (G, ...) with a multiple of 8 "
+                         f"values per block, got {tuple(a.shape)}")
+    if not _check(a, torch.bfloat16, 1, "hbm_stream"):
+        return hbm_stream_reference(a)
+    if a.numel() == 0:
+        return torch.zeros((1, *a.shape[1:]), dtype=torch.float32, device=a.device)
+    out = torch.empty((1, *a.shape[1:]), dtype=torch.float32, device=a.device)
+    _build.check(_library().hbm_stream(a.data_ptr(), out.data_ptr(), a.shape[0],
+                                       out.numel(), _stream(a)), "hbm_stream")
+    hbm_stream.launches += 1
+    return out
+
+
+def dyn_slice_reference(a: torch.Tensor, qv: int = QV, n_offsets: int = N_OFFSETS,
+                        steps: int = STEPS) -> torch.Tensor:
+    out = torch.zeros_like(a)
+    rows = offsets(a.shape[1], qv, n_offsets)
+    for _ in range(steps):
+        for q in rows:
+            out[0, :qv] += a[0, q:q + qv]
+    return out
+
+
+def dyn_slice(a: torch.Tensor, qv: int = QV, n_offsets: int = N_OFFSETS,
+              steps: int = STEPS) -> torch.Tensor:
+    """(1, H, W) float32: the first `qv` output rows sum `steps` x
+    `n_offsets` row slices of `a` at computed offsets; the rest are zero."""
+    if a.ndim != 3 or a.shape[0] != 1 or not 0 < qv < a.shape[1]:
+        raise ValueError(f"dyn_slice: input must be (1, H, W) with H > qv = {qv}, "
+                         f"got {tuple(a.shape)}")
+    if not _check(a, torch.float32, 1, "dyn_slice"):
+        return dyn_slice_reference(a, qv, n_offsets, steps)
+    _, H, W = a.shape
+    out = torch.zeros_like(a)
+    if W == 0:
+        return out
+    _build.check(_library().dyn_slice(a.data_ptr(), out.data_ptr(), H, W, qv, steps,
+                                      n_offsets, _stream(a)), "dyn_slice")
+    dyn_slice.launches += 1
+    return out
+
+
+smem_copy.launches = 0
+block_step.launches = 0
+hbm_stream.launches = 0
+dyn_slice.launches = 0

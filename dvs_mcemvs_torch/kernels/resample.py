@@ -85,6 +85,13 @@ def banded_resample_reference(src: torch.Tensor, src_idx: torch.Tensor,
     return out if out_dtype in (None, torch.float32) else out.to(out_dtype)
 
 
+def host_index(a) -> torch.Tensor:
+    """A host index array as a C-contiguous int32 CPU tensor, the layout the
+    kernel reads.  (`np.array` keeps the layout of its input, so a broadcast
+    (N, K) array would come back in column order.)"""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+
+
 def _run(src, src_idx, sy, ty, sx, tx, out_idx, *, n_out, out_h, out_w,
          out_dtype, counter) -> torch.Tensor:
     """Check the items and run them: the plain version for a CPU source,
@@ -108,8 +115,8 @@ def _run(src, src_idx, sy, ty, sx, tx, out_idx, *, n_out, out_h, out_w,
     if J and (out_idx.min() < 0 or out_idx.max() >= n_out):
         raise ValueError("output index out of range")
     dev = src.device
-    src_idx_t = torch.from_numpy(np.array(src_idx, np.int32)).to(dev)
-    out_idx_t = torch.from_numpy(np.array(out_idx, np.int32)).to(dev)
+    src_idx_t = host_index(src_idx).to(dev)
+    out_idx_t = host_index(out_idx).to(dev)
     if dev.type == "cpu":
         return banded_resample_reference(
             src, src_idx_t.long(), sy, ty, sx, tx, out_idx_t.long(), n_out=n_out,

@@ -82,6 +82,52 @@ def bucket_capacity(n: int, packet_size: int) -> int:
     return packet_size * (1 << max(k - 1, 0).bit_length())
 
 
+def warp_chunk(
+    mapper: Mapper,
+    events: Events,
+    traj: trajmod.Trajectory,
+    T_rv_w: SE3,
+    packet_size: int = voting.DEFAULT_PACKET_SIZE,
+    rectify: str = "device",
+    pad: str = "none",
+) -> Tuple[voting.WarpedPackets, torch.Tensor, float]:
+    """The chunk's events as packets on the z0 plane of the reference view,
+    on the trajectory's device: (packets, plane depths, z0).  `rectify` and
+    `pad` as in `evaluate_dsi`."""
+    dev = traj.device
+    ev_weight = None
+    x_arr, y_arr, t_arr = events.x, events.y, events.t
+    if pad == "bucket":
+        cap = bucket_capacity(events.num, packet_size)
+        extra = cap - events.num
+        x_arr = np.pad(np.asarray(x_arr), (0, extra))
+        y_arr = np.pad(np.asarray(y_arr), (0, extra))
+        t_arr = np.pad(np.asarray(t_arr), (0, extra), mode="edge")
+        w = np.zeros(cap, np.float32)
+        w[:events.num] = 1.0
+        ev_weight = torch.as_tensor(w, device=dev)
+    elif pad != "none":
+        raise ValueError(f"pad must be 'none' or 'bucket', got {pad!r}")
+    if rectify not in ("device", "lut"):
+        raise ValueError(f"rectify must be 'device' or 'lut', got {rectify!r}")
+    depths_np = mapper.depth_vec.depths()
+    depths = torch.as_tensor(depths_np, device=dev)
+    z0 = float(depths_np[0])
+    K_cam = torch.as_tensor(mapper.cam.P.astype(np.float32), device=dev)
+    Kv_inv = torch.as_tensor(np.linalg.inv(mapper.vcam.P).astype(np.float32), device=dev)
+    rect_params = camops.rect_static(mapper.cam) if rectify == "device" else None
+    lut = None if rect_params is not None else torch.as_tensor(mapper.lut, device=dev)
+    packets = voting.warp_events_to_z0(
+        torch.as_tensor(np.asarray(x_arr, np.int32), device=dev),
+        torch.as_tensor(np.asarray(y_arr, np.int32), device=dev),
+        torch.as_tensor(np.asarray(t_arr, np.float32), device=dev),
+        traj, T_rv_w, lut, K_cam, Kv_inv, z0=z0, width=mapper.width,
+        packet_size=packet_size, rect_params=rect_params,
+        ev_weight=ev_weight, full=ev_weight is not None,
+    )
+    return packets, depths, z0
+
+
 def evaluate_dsi(
     mapper: Mapper,
     events: Events,
@@ -103,39 +149,10 @@ def evaluate_dsi(
     """
     if events.num <= packet_size:
         return None
-    dev = traj.device
-    ev_weight = None
-    x_arr, y_arr, t_arr = events.x, events.y, events.t
-    if pad == "bucket":
-        cap = bucket_capacity(events.num, packet_size)
-        extra = cap - events.num
-        x_arr = np.pad(np.asarray(x_arr), (0, extra))
-        y_arr = np.pad(np.asarray(y_arr), (0, extra))
-        t_arr = np.pad(np.asarray(t_arr), (0, extra), mode="edge")
-        w = np.zeros(cap, np.float32)
-        w[:events.num] = 1.0
-        ev_weight = torch.as_tensor(w, device=dev)
-    elif pad != "none":
-        raise ValueError(f"pad must be 'none' or 'bucket', got {pad!r}")
-    if rectify not in ("device", "lut"):
-        raise ValueError(f"rectify must be 'device' or 'lut', got {rectify!r}")
-    depths_np = mapper.depth_vec.depths()
-    depths = torch.as_tensor(depths_np, device=dev)
-    z0 = float(depths_np[0])
+    packets, depths, z0 = warp_chunk(mapper, events, traj, T_rv_w, packet_size,
+                                     rectify, pad)
     vp = (float(mapper.vcam.fx), float(mapper.vcam.fy),
           float(mapper.vcam.cx), float(mapper.vcam.cy))
-    K_cam = torch.as_tensor(mapper.cam.P.astype(np.float32), device=dev)
-    Kv_inv = torch.as_tensor(np.linalg.inv(mapper.vcam.P).astype(np.float32), device=dev)
-    rect_params = camops.rect_static(mapper.cam) if rectify == "device" else None
-    lut = None if rect_params is not None else torch.as_tensor(mapper.lut, device=dev)
-    packets = voting.warp_events_to_z0(
-        torch.as_tensor(np.asarray(x_arr, np.int32), device=dev),
-        torch.as_tensor(np.asarray(y_arr, np.int32), device=dev),
-        torch.as_tensor(np.asarray(t_arr, np.float32), device=dev),
-        traj, T_rv_w, lut, K_cam, Kv_inv, z0=z0, width=mapper.width,
-        packet_size=packet_size, rect_params=rect_params,
-        ev_weight=ev_weight, full=ev_weight is not None,
-    )
     fn = voting.resolve_backend(backend)
     return fn(packets, depths, z0, vp, mapper.width, mapper.height,
               plane_block=plane_block)

@@ -6,11 +6,12 @@ batched `searchsorted` + batched SE(3) lerp.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from ..device import require_cuda
 from . import se3
 from .se3 import SE3
 
@@ -30,8 +31,14 @@ class Trajectory(NamedTuple):
         return self.ts.device
 
 
-def from_arrays(ts, qs, trans, device: Optional[torch.device] = None) -> Trajectory:
-    """Build from arrays; ts (N,), qs (N,4) wxyz, trans (N,3); sorted by time."""
+def from_arrays(ts, qs, trans, device=None) -> Trajectory:
+    """Build from arrays; ts (N,), qs (N,4) wxyz, trans (N,3); sorted by time.
+
+    The tensors go to `device`, by default the CUDA device (raises when there
+    is none); pass device="cpu" for the CPU.
+    """
+    if device is None:
+        device = require_cuda()
     ts = torch.as_tensor(np.asarray(ts, np.float32), device=device)
     order = torch.argsort(ts, stable=True)
     q = se3.quat_normalize(torch.as_tensor(np.asarray(qs, np.float32), device=device)[order])

@@ -209,48 +209,56 @@ def splat_scatter(
     return out.reshape(Z, height, width)
 
 
-# The histogram spec tokens this port implements: group size, segment count,
-# butterfly merge, kernel engine.  Every other token of the JAX package's
-# spec grammar is refused until it is ported.
-_PORTED_HIST_TOKENS = ("g", "seg", "bf", "pl")
-
-
 @functools.lru_cache(maxsize=None)
 def resolve_backend(spec: str):
     """Resolve a backend spec string to a splat callable.
 
-    "scatter" is the exact per-event backend.  "hist:<tokens>" is the
-    histogram backend on the hand-written kernels: "g<N>" (group size),
-    "seg<S>" (inverse-depth segments, a power of two >= 2), "bf" (butterfly
-    merge) and "pl" (kernel engine) -- the latter two are required, since the
-    flat merge and the one-hot-matmul engine are not ported.
+    "scatter" is the exact per-event backend.  "hist:<tokens>,pl" is the
+    histogram backend on the hand-written kernels, with the JAX package's
+    tokens: "g<N>" (group size), "seg<S>" (inverse-depth segments), "bf"
+    (butterfly merge; flat without it), "ss<k>" (supersampling), "px<N>" /
+    "py<N>" (z0-grid padding), "nocorr" (no sweep correction), "f32" (float32
+    histograms), "i8" (int8 binning taps) and "pl" (the kernel engine).
+    Without "pl" a spec names the JAX package's one-hot-matmul engine, which
+    is not ported, nor are "sort", "hist" and "hist_exact" (ROADMAP Queue 1
+    item 1).  Unknown tokens raise.
     """
     name, _, args = spec.partition(":")
     if not args:
         if name == "scatter":
             return splat_scatter
-        raise ValueError(f"backend {name!r} is not ported")
+        raise ValueError(f"backend {name!r} is not ported (ROADMAP Queue 1 item 1)")
     if name != "hist":
         raise ValueError(f"backend {name!r} takes no {args!r} options")
     from . import voting_hist
 
     kw = {}
-    seen = set()
+    kernel_engine = False
     for tok in args.split(","):
-        if tok.startswith("seg") and tok[3:].isdigit():
+        if tok.startswith("seg"):
             kw["segments"] = int(tok[3:])
-            seen.add("seg")
-        elif tok.startswith("g") and tok[1:].isdigit():
+        elif tok.startswith("ss"):
+            kw["supersample"] = int(tok[2:])
+        elif tok.startswith("g"):
             kw["group_size"] = int(tok[1:])
-            seen.add("g")
-        elif tok in ("bf", "pl"):
-            seen.add(tok)
+        elif tok.startswith("px"):
+            kw["pad_x"] = int(tok[2:])
+        elif tok.startswith("py"):
+            kw["pad_y"] = int(tok[2:])
+        elif tok == "nocorr":
+            kw["correct"] = False
+        elif tok == "f32":
+            kw["dtype"] = torch.float32
+        elif tok == "i8":
+            kw["bin_dtype"] = torch.int8
+        elif tok == "pl":
+            kernel_engine = True
+        elif tok == "bf":
+            kw["merge_mode"] = "butterfly"
         else:
-            raise ValueError(
-                f"hist option {tok!r} in {spec!r} is not ported "
-                f"(ported: {', '.join(_PORTED_HIST_TOKENS)})")
-    if not {"seg", "bf", "pl"} <= seen:
+            raise ValueError(f"unknown hist option {tok!r} in {spec!r}")
+    if not kernel_engine:
         raise ValueError(
-            f"{spec!r}: the port runs only the segmented butterfly sweep on "
-            "its kernels and needs 'seg<S>', 'bf' and 'pl'")
+            f"{spec!r} names the one-hot-matmul engine, which is not ported "
+            "(ROADMAP Queue 1 item 1); add 'pl' for the kernel engine")
     return voting_hist.make_hist_backend(**kw)

@@ -1,21 +1,31 @@
 """Histogram + separable affine-resample voting on the hand-written kernels.
 
-Port of the kernel-engine path of dvs_mcemvs_tpu/ops/voting_hist.py (the
-`hist:g<N>,seg<S>,bf,pl` specs):
+Port of the kernel-engine path of dvs_mcemvs_tpu/ops/voting_hist.py (every
+`hist:...,pl` spec):
 
 1. Packets are grouped into super-packets sharing one camera center
    (`group_size`); a first-order per-event shift (`_sweep_correction`) keeps
-   the grouping from tilting the vote rays.
-2. Each group's z0 locations are binned bilinearly into a z0 histogram
-   (`kernels.binning.bin_events`).
-3. The inverse-depth sweep is split into `segments`; a butterfly of
-   frame-change resamples merges the leaf histograms into range-specialized
-   supergroups (`_merge_butterfly`, `kernels.resample`).
-4. Every depth plane is the sum of its segment's supergroup histograms
-   resampled under the Eq. (15) affine map (`_sweep_planes_fanin`).
+   the grouping from tilting the vote rays (off with `correct=False`).
+2. Each group's z0 locations are binned bilinearly into a z0 histogram on a
+   grid padded by `pad_x`/`pad_y` and refined `supersample` times
+   (`kernels.binning.bin_events`; bf16 taps, or int8 ones with
+   `bin_dtype=torch.int8`).
+3. With `segments` > 1 the inverse-depth sweep is split into segments and
+   the leaf histograms are merged into supergroups per segment: by a
+   butterfly of frame-change resamples (`merge_mode="butterfly"`,
+   `_merge_butterfly`) or by one flat merge per segment
+   (`merge_leaf_histograms`), both on `kernels.resample`.
+4. Every depth plane is the sum of its (super)groups' histograms resampled
+   under the Eq. (15) affine map: one fan-in call over all segments after
+   the butterfly (`_sweep_planes_fanin`), else one (N, K) sum call per
+   segment or for the whole sweep (`_sweep_planes`).
 
-Border semantics diverge from the C++ reference as in the JAX package:
-partial bilinear taps at the image edge are kept.
+Histograms and merge levels are bf16 with f32 accumulation, or f32 with
+`dtype=torch.float32`.  The JAX package degrades a spec whose grid exceeds
+the TPU's scoped VMEM to its one-hot-matmul engine; the card has no such
+limit, so the port runs every spec on its kernels.  Border semantics diverge
+from the C++ reference as in the JAX package: partial bilinear taps at the
+image edge are kept.
 """
 
 from __future__ import annotations
@@ -31,9 +41,9 @@ from ..kernels.binning import bin_events
 from ..kernels.resample import banded_resample_fanin, banded_resample_sum
 from .voting import WarpedPackets
 
-# z0-grid padding in bins (the JAX backend's defaults; no spec token sets
-# them in the port): events whose z0 location is out of frame still vote on
-# the planes where they land in frame.  No supersampling.
+# Default z0-grid padding in bins (spec tokens px<N>/py<N>): events whose z0
+# location is out of frame still vote on the planes where they land in frame.
+# Default supersampling (ss<k>): none.
 PAD_X, PAD_Y, SUPERSAMPLE = 128, 32, 1
 
 # Butterfly-merge levels at or above this radix run on the fan-in wrapper,
@@ -100,14 +110,19 @@ def build_group_histograms(
     pad_x: int,
     pad_y: int,
     ss: int,
+    dtype: torch.dtype = torch.bfloat16,
     correction: Optional[tuple] = None,
     out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bilinear-bin each super-packet's z0 locations on the binning kernel.
 
+    `dtype` = torch.int8 bins with int8 taps; any other `dtype` (float32
+    included) bins with bf16 taps, as the JAX package's kernels do.
     `correction` = (z0, fx, fy, cx, cy, u_mid) applies the first-order sweep
-    correction.  Events outside the padded grid are dropped.  Returns
-    (hist (G, hs, ws) in `out_dtype` (float32 by default), centers (G, 3)).
+    correction.  Events outside the padded grid are dropped.  Any hs: the
+    JAX package takes its dense kernel where hs % 64 != 0, the same kernel
+    here.  Returns (hist (G, hs, ws) in `out_dtype` (float32 by default),
+    centers (G, 3)).
     """
     K, P, _ = packets.xy_z0.shape
     G = -(-K // group_size)
@@ -138,7 +153,8 @@ def build_group_histograms(
     # Without an explicit per-event weight the weights are validity and
     # in-bounds masks only, so 0/1 -- which the binning wrapper checks.
     hist = bin_events(hx, hy, w.contiguous(), hs=hs, ws=ws,
-                      binary_w=packets.weight is None, out_dtype=out_dtype)
+                      binary_w=packets.weight is None, int8=dtype == torch.int8,
+                      out_dtype=out_dtype)
     return hist, centers
 
 
@@ -188,6 +204,32 @@ def _frame_change_maps(centers_src, centers_tgt, u_mid, z0, vcam_params,
     bt_x = ss * (m_tx + pad_x * (1.0 - m_s))
     bt_y = ss * (m_ty + pad_y * (1.0 - m_s))
     return m_s, bt_y, bt_x
+
+
+def merge_leaf_histograms(hist, centers, merge, u_mid, z0, vcam_params,
+                          pad_x, pad_y, ss, dtype=torch.bfloat16):
+    """The flat merge: groups of `merge` adjacent leaf histograms summed into
+    supergroups, each leaf resampled from its own sweep frame into the
+    supergroup center's, exact at inverse depth `u_mid` -- one
+    `banded_resample_sum(blocked=True)` call.  Returns (hist_super
+    (G/merge, hs, ws), bf16 when `dtype` is, else float32; centers_super
+    (G/merge, 3))."""
+    G, hs_, ws_ = hist.shape
+    P = -(-G // merge)
+    pad_g = P * merge - G
+    if pad_g:
+        hist = F.pad(hist, (0, 0, 0, 0, 0, pad_g))
+        centers = torch.cat([centers, centers[-1:].expand(pad_g, 3)])
+    centers_super = torch.mean(centers.reshape(P, merge, 3), dim=1)
+    m_s, bt_y, bt_x = _frame_change_maps(
+        centers, torch.repeat_interleave(centers_super, merge, dim=0), u_mid, z0,
+        vcam_params, pad_x, pad_y, ss)
+    s = m_s.reshape(P, merge)
+    out = banded_resample_sum(
+        hist, s, bt_y.reshape(P, merge), s, bt_x.reshape(P, merge), out_h=hs_,
+        out_w=ws_, blocked=True,
+        out_dtype=dtype if dtype == torch.bfloat16 else None)
+    return out, centers_super
 
 
 def _merge_butterfly(hist, centers, depths, bounds, z0, vcam_params,
@@ -330,6 +372,19 @@ def _sweep_planes_fanin(hist_seg, centers_s, depths, bounds, z0, vcam_params,
         n_out=Z, out_h=height, out_w=width)
 
 
+def _sweep_planes(hist, centers, depths, z0, vcam_params, width, height,
+                  pad_x, pad_y, ss):
+    """The non-segmented sweep: DSI[zi] = sum_g resample(hist[g],
+    map[g, zi]) for every plane, one `banded_resample_sum(blocked=False)`
+    call.  The TPU kernel's `tile_v`/`scale_min` have no counterpart: the
+    CUDA kernel is exact for any scale.  Returns (Z, height, width) float32."""
+    fx, fy, cx, cy = vcam_params
+    sx, tx, sy, ty = _affine_coeffs(
+        centers, depths, z0, fx, fy, cx, cy, pad_x, pad_y, ss)  # (G, Z)
+    return banded_resample_sum(hist, sy.T, ty.T, sx.T, tx.T, out_h=height,
+                               out_w=width, blocked=False)
+
+
 def splat_hist(
     packets: WarpedPackets,
     depths: torch.Tensor,
@@ -339,20 +394,32 @@ def splat_hist(
     height: int,
     plane_block: int = 8,
     group_size: int = 32,
-    segments: int = 16,
+    supersample: int = SUPERSAMPLE,
+    pad_x: int = PAD_X,
+    pad_y: int = PAD_Y,
+    dtype: torch.dtype = torch.bfloat16,
+    correct: bool = True,
+    segments: int = 1,
+    bin_dtype: Optional[torch.dtype] = None,
+    merge_mode: str = "flat",
 ) -> torch.Tensor:
     """Vote all packets into a (Z, H, W) float32 DSI by histogram + affine
-    resample on the kernels, with the butterfly-merged segmented sweep.
+    resample on the kernels.
 
-    `group_size` packets share one camera center; `segments` splits the
-    inverse-depth sweep into equal plane-count chunks, merged by the
-    O(G log S) butterfly.
-    Histograms and merge levels are bf16 with f32 accumulation.
-    `plane_block` is accepted for the backend signature and unused.
+    `group_size` packets share one camera center; `pad_x`/`pad_y` extend the
+    z0 grid; `supersample` refines it; `dtype` (bf16 or float32) is the type
+    of the histograms and merge levels, `bin_dtype` (torch.int8 for int8
+    taps) overrides it for binning; `correct=False` drops the sweep
+    correction.  `segments` > 1 splits the inverse-depth sweep into
+    segments of equal plane counts and merges the leaf histograms per
+    segment, flat (`merge_mode="flat"`) or by the
+    O(G log S) butterfly (`"butterfly"`, power-of-two segments); 1 sweeps
+    every plane over all leaves.  `plane_block` is accepted for the backend
+    signature and unused.
     """
     del plane_block
     fx, fy, cx, cy = vcam_params
-    pad_x, pad_y, ss = PAD_X, PAD_Y, SUPERSAMPLE
+    ss = supersample
     hs = (height + 2 * pad_y) * ss
     ws = (width + 2 * pad_x) * ss
     # The JAX kernel engine's aligned grid (extra bins at the right/bottom
@@ -363,24 +430,39 @@ def splat_hist(
 
     u_all = 1.0 / depths
     u_mid = 0.5 * (torch.min(u_all) + torch.max(u_all))
-    corr = (z0, fx, fy, cx, cy, u_mid)
+    corr = (z0, fx, fy, cx, cy, u_mid) if correct else None
     hist, centers = build_group_histograms(
         packets, group_size, hs, ws, pad_x, pad_y, ss,
-        correction=corr, out_dtype=torch.bfloat16)
+        dtype=bin_dtype if bin_dtype is not None else dtype,
+        correction=corr, out_dtype=dtype)
 
-    # Clamp the segment count to the planes present (a power of two).
-    eff = min(segments, Z)
-    segments = 1 << (eff.bit_length() - 1)
-    if segments < 2:
-        raise ValueError(
-            f"the butterfly sweep needs >= 2 segments; got {segments} for "
-            f"{Z} planes (the non-segmented sweep is not ported)")
+    if segments > 1:
+        # Clamp the segment count to the planes present (the butterfly's to
+        # a power of two).
+        segments = min(segments, Z)
+        if merge_mode == "butterfly":
+            segments = 1 << (segments.bit_length() - 1)
+    if segments <= 1:
+        return _sweep_planes(hist, centers, depths, z0, vcam_params, width,
+                             height, pad_x, pad_y, ss)
+    # Equal plane counts; with segments <= Z no segment is empty.
     bounds = [round(s * Z / segments) for s in range(segments + 1)]
-    hist_seg, centers_s = _merge_butterfly(
-        hist, centers, depths, bounds, z0, vcam_params, pad_x, pad_y, ss)
-    return _sweep_planes_fanin(
-        hist_seg, centers_s, depths, bounds, z0, vcam_params,
-        width, height, pad_x, pad_y, ss)
+    if merge_mode == "butterfly":
+        hist_seg, centers_s = _merge_butterfly(
+            hist, centers, depths, bounds, z0, vcam_params, pad_x, pad_y, ss, dtype)
+        return _sweep_planes_fanin(
+            hist_seg, centers_s, depths, bounds, z0, vcam_params,
+            width, height, pad_x, pad_y, ss)
+    parts = []
+    for s in range(segments):
+        dseg = depths[bounds[s]:bounds[s + 1]]
+        useg = 1.0 / dseg
+        hist_s, centers_s = merge_leaf_histograms(
+            hist, centers, segments, 0.5 * (torch.min(useg) + torch.max(useg)),
+            z0, vcam_params, pad_x, pad_y, ss, dtype)
+        parts.append(_sweep_planes(hist_s, centers_s, dseg, z0,
+                                   vcam_params, width, height, pad_x, pad_y, ss))
+    return torch.cat(parts)
 
 
 def auto_group_size(
@@ -424,6 +506,15 @@ def auto_backend_spec(
     return spec + ",pl"
 
 
-def make_hist_backend(group_size: int = 32, segments: int = 16):
+def make_hist_backend(group_size: int = 32, supersample: int = SUPERSAMPLE,
+                      pad_x: int = PAD_X, pad_y: int = PAD_Y,
+                      dtype: torch.dtype = torch.bfloat16, correct: bool = True,
+                      segments: int = 1,
+                      bin_dtype: Optional[torch.dtype] = None,
+                      merge_mode: str = "flat"):
     """A backend callable (the `splat_scatter` signature) with fixed knobs."""
-    return functools.partial(splat_hist, group_size=group_size, segments=segments)
+    return functools.partial(
+        splat_hist, group_size=group_size, supersample=supersample,
+        pad_x=pad_x, pad_y=pad_y, dtype=dtype, correct=correct,
+        segments=segments, bin_dtype=bin_dtype,
+        merge_mode=merge_mode)

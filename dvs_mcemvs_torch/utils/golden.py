@@ -97,7 +97,8 @@ def dsec_like_camera(cfg: GoldenConfig = FULL) -> PinholeCamera:
 def golden_trajectories(cfg: GoldenConfig = FULL, device=None
                         ) -> Tuple[trajmod.Trajectory, trajmod.Trajectory]:
     """(left, right) camera trajectories over the window, with t=0 at the
-    window start."""
+    window start, on `device` (the CUDA device by default; device="cpu" for
+    the CPU)."""
     d = np.load(POSE_NPZ)
     t, q, p = (np.asarray(d["t"], np.float64), np.asarray(d["q"], np.float64),
                np.asarray(d["p"], np.float64))
@@ -105,8 +106,8 @@ def golden_trajectories(cfg: GoldenConfig = FULL, device=None
     sel = (t >= w0 - 0.3) & (t <= w0 + WINDOW_LEN_S + 0.3)
     t, q, p = t[sel] - w0, q[sel], p[sel]
     traj0 = trajmod.from_arrays(t, q, p, device=device)
-    T_1_0 = SE3(torch.tensor([1.0, 0.0, 0.0, 0.0], device=device),
-                torch.tensor([-BASELINE, 0.0, 0.0], device=device))
+    T_1_0 = SE3(torch.tensor([1.0, 0.0, 0.0, 0.0], device=traj0.device),
+                torch.tensor([-BASELINE, 0.0, 0.0], device=traj0.device))
     return traj0, trajmod.apply_right(traj0, se3.inverse(T_1_0))
 
 
@@ -123,7 +124,7 @@ def make_golden_scene(cfg: GoldenConfig = FULL, seed: int = SEED) -> GoldenScene
     """Stripe-plane scene anchored at the RV (left camera at the window
     midpoint), built on the CPU."""
     cam = dsec_like_camera(cfg)
-    traj0, _ = golden_trajectories(cfg)
+    traj0, _ = golden_trajectories(cfg, device="cpu")
     T_w_rv, valid = trajmod.pose_at(traj0, WINDOW_LEN_S / 2.0)
     if not bool(valid):
         raise ValueError("reference-view time outside the pose window")
@@ -190,7 +191,7 @@ def simulate_events_se3(cam: PinholeCamera, traj: trajmod.Trajectory,
 def simulate_golden_events(cfg: GoldenConfig = FULL) -> List[Events]:
     """The (left, right) event streams of the fixture, simulated here."""
     cam = dsec_like_camera(cfg)
-    traj0, traj1 = golden_trajectories(cfg)
+    traj0, traj1 = golden_trajectories(cfg, device="cpu")
     scene = make_golden_scene(cfg)
     rng = np.random.default_rng(SEED + 1)
     t_range = (0.02, WINDOW_LEN_S - 0.02)
@@ -212,7 +213,8 @@ def committed_events(cfg: GoldenConfig) -> Optional[List[Events]]:
 
 def build_golden_fixture(cfg: GoldenConfig = FULL, device=None):
     """(mappers, events, trajs, scene, ts_rv) -- the full golden problem,
-    with the trajectories on `device` (the CPU by default).  The events are
+    with the trajectories on `device` (the CUDA device by default, raising
+    when there is none; device="cpu" for the CPU).  The events are
     the committed ones where GOLDEN_EVENTS_NPZ has the profile, else
     simulated here."""
     cam = dsec_like_camera(cfg)
@@ -262,7 +264,7 @@ def production_backend_spec(events, packet_size: int,
     same travel estimate as the JAX package)."""
     from ..ops.voting_hist import auto_backend_spec
 
-    traj0, _ = golden_trajectories(cfg)
+    traj0, _ = golden_trajectories(cfg, device="cpu")
     pos = traj0.poses.t.numpy()
     travel = float(np.linalg.norm(np.diff(pos, axis=0), axis=1).sum())
     ts = traj0.ts.numpy()

@@ -34,7 +34,7 @@ def test_se3_group_ops():
     rng = np.random.default_rng(0)
     (qa, ta), (qb, tb) = _poses(rng, 64), _poses(rng, 64)
     ja, jb = jse3.SE3(jnp.asarray(qa), jnp.asarray(ta)), jse3.SE3(jnp.asarray(qb), jnp.asarray(tb))
-    ta_, tb_ = convert.se3(ja), convert.se3(jb)
+    ta_, tb_ = convert.se3(ja, "cpu"), convert.se3(jb, "cpu")
     j, t = jse3.compose(ja, jb), tse3.compose(ta_, tb_)
     assert_rel_close(t.q, j.q, REL, "compose q")
     assert_rel_close(t.t, j.t, REL, "compose t")
@@ -71,7 +71,7 @@ def test_pose_at_upper_bound_and_validity():
     ts = np.sort(rng.uniform(0, 1, n)).astype(np.float32)
     q, t = _poses(rng, n)
     jt = jtraj.from_arrays(ts, q, t)
-    tt = ttraj.from_arrays(ts, q, t)
+    tt = ttraj.from_arrays(ts, q, t, device="cpu")
     # Queries on knots (upper_bound semantics), between them, and outside.
     queries = np.concatenate([ts[5:10], rng.uniform(-0.1, 1.1, 64)]).astype(np.float32)
     J, jv = jtraj.pose_at(jt, jnp.asarray(queries))
@@ -148,8 +148,8 @@ def test_warp_events_to_z0(rectify, weighted):
         packet_size=P, rect_params=rect, full=weighted,
         ev_weight=None if w is None else jnp.asarray(w))
     T = tvoting.warp_events_to_z0(
-        torch.as_tensor(x), torch.as_tensor(y), torch.as_tensor(t), convert.trajectory(jt),
-        convert.se3(T_rv_w), torch.as_tensor(lut), torch.as_tensor(K_cam),
+        torch.as_tensor(x), torch.as_tensor(y), torch.as_tensor(t),
+        convert.trajectory(jt, "cpu"), convert.se3(T_rv_w, "cpu"), torch.as_tensor(lut), torch.as_tensor(K_cam),
         torch.as_tensor(Kv_inv), z0=4.0, width=cam.width, packet_size=P,
         rect_params=None if rect is None else tcam.rect_static(convert.camera(cam)),
         full=weighted, ev_weight=None if w is None else torch.as_tensor(w))

@@ -6,6 +6,7 @@ import os
 import shutil
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -23,8 +24,8 @@ SLICE_MODULES = [
     "dvs_mcemvs_torch.ops.voting", "dvs_mcemvs_torch.ops.voting_hist",
     "dvs_mcemvs_torch.ops.grid", "dvs_mcemvs_torch.ops.extract",
     "dvs_mcemvs_torch.kernels._build", "dvs_mcemvs_torch.kernels.binning",
-    "dvs_mcemvs_torch.kernels.resample", "dvs_mcemvs_torch.utils.synthetic",
-    "dvs_mcemvs_torch.utils.golden",
+    "dvs_mcemvs_torch.kernels.resample", "dvs_mcemvs_torch.kernels.probes",
+    "dvs_mcemvs_torch.utils.synthetic", "dvs_mcemvs_torch.utils.golden",
 ]
 
 
@@ -35,9 +36,11 @@ def _clean_env():
 
 
 def test_port_never_imports_jax():
-    code = ("import importlib, sys\n"
+    code = ("import importlib, importlib.util, sys\n"
             f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
             "import chip_smoke\n"
+            "spec = importlib.util.spec_from_file_location('probe_gpu', 'scripts/probe_gpu.py')\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'dvs_mcemvs_tpu')))\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_clean_env(),
@@ -83,22 +86,82 @@ def test_chip_smoke_refuses_without_cuda(tmp_path, where):
 
 
 def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
-    """chip_smoke.py's kernel and chunk phases at a tiny size on CPU tensors:
-    every comparison runs (plain version against itself), and the chunk
-    phase refuses a main path that launched no kernel."""
+    """chip_smoke.py's phases at a tiny size on CPU tensors: every kernel
+    comparison runs (plain version against itself), every spec form votes
+    within the mass tolerance of the headline spec, the card-against-CPU
+    check runs, and each phase refuses a path that launched no kernel."""
     sys.path.insert(0, REPO)
     import chip_smoke
 
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, iters: (fn(), 0.0)[1])
     cpu = torch.device("cpu")
-    res = chip_smoke.kernel_phase(cpu, G=4, E=1024, hs=64, ws=128, Ho=48, Wo=64, Z=12,
-                                  S=4, K_sweep=2, K_wide=32, iters=1)
-    assert set(res) == {"bin_events", "banded_resample_sum", "banded_resample_fanin"}
-    assert all(r["max_abs_err"] == 0.0 for r in res.values())
+    res = chip_smoke.kernel_phase(cpu, G=4, E=1024, hs=64, ws=128, hs_dense=56, Ho=48,
+                                  Wo=64, Z=12, S=4, K_sweep=2, K_wide=32, probe_h=176,
+                                  probe_w=128, probe_g=4, iters=1)
+    assert set(res) == {"bin_events", "bin_events_int8", "bin_events_dense",
+                        "banded_resample_sum", "banded_resample_fanin", "smem_copy",
+                        "block_step", "hbm_stream", "dyn_slice"}
+    assert all(r["max_abs_err"] == 0.0 and r["bound_ms"] > 0 for r in res.values())
+    assert res["hbm_stream"]["bound_by"] == "bytes"
     workload = chip_smoke.build_workload(cpu, n_events=16384, width=96, height=64,
                                          dim_z=20, n_pts=2000)
     with pytest.raises(AssertionError, match="not launched"):
         chip_smoke.chunk_phase(cpu, workload, runs=1)
+
+    small = {spec.replace("g16", "g4").replace("seg16", "seg4"): needed
+             for spec, needed in chip_smoke.SPEC_FORMS.items()}
+    headline, _ = chip_smoke.run_chunk(workload, "hist:g4,seg4,bf,pl")
+    masses = chip_smoke.check_dsis(headline, workload, "headline")
+    out = chip_smoke.specs_phase(cpu, workload, masses,
+                                 forms={spec: () for spec in small}, runs=1)
+    assert set(out) == set(small)
+    with pytest.raises(AssertionError, match="not launched"):
+        chip_smoke.specs_phase(cpu, workload, masses, forms=small, runs=1)
+    rows = chip_smoke.device_vs_cpu_phase(cpu)
+    assert all(l1 == 0.0 for r in rows.values() for l1, _ in r)
+    assert chip_smoke.dense_phase(cpu, workload, hs=136) == 0
+    with pytest.raises(RuntimeError, match="CUDA"):
+        chip_smoke.probe_phase(min_time=0.01)
+
+
+@pytest.mark.parametrize("entry", ["from_arrays", "golden_trajectories",
+                                   "convert_trajectory"])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """With no card and no device given, the entry points that place a
+    trajectory raise; device="cpu" asks for the CPU."""
+    from dvs_mcemvs_torch import convert
+    from dvs_mcemvs_torch.ops import trajectory
+    from dvs_mcemvs_torch.utils import golden
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ts = np.linspace(0.0, 1.0, 4)
+    q = np.tile([1.0, 0.0, 0.0, 0.0], (4, 1))
+    t = np.zeros((4, 3))
+    if entry == "from_arrays":
+        def build(**kw):
+            return trajectory.from_arrays(ts, q, t, **kw)
+    elif entry == "convert_trajectory":
+        # The JAX package's Trajectory fields, read through numpy.
+        poses = types.SimpleNamespace(q=q, t=t)
+        jax_like = types.SimpleNamespace(ts=ts, poses=poses)
+
+        def build(**kw):
+            return convert.trajectory(jax_like, **kw)
+    else:
+        def build(**kw):
+            return golden.golden_trajectories(golden.SMALL, **kw)[0]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build()
+    assert build(device="cpu").device.type == "cpu"
+
+
+def test_kernel_index_arrays_are_row_major():
+    """The resample kernel reads its (J, K) source indices row by row; a
+    broadcast index array (the sweep form's) must reach it in that order."""
+    src = np.broadcast_to(np.arange(4)[None, :], (20, 4))
+    t = resample.host_index(src)
+    assert t.dtype == torch.int32 and t.is_contiguous()
+    np.testing.assert_array_equal(t.numpy().reshape(-1), np.tile(np.arange(4), 20))
 
 
 def test_fanin_writes_each_plane_once():

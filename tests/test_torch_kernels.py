@@ -145,3 +145,50 @@ def test_resample_fanin_matches_pallas(K, scale):
         *(torch.as_tensor(a) for a in (sy, ty, sx, tx)), out_idx,
         n_out=bounds[-1], out_h=Ho, out_w=Wo)
     assert_bf16_close(got, np.asarray(want))
+
+
+# int8 taps are summed exactly on both sides: the TPU kernels sum int32 per
+# 1024-event block and add the blocks in f32, exact while a bin stays below
+# 2^24 (about 1040 full-weight events; a bin here gathers a few), and the
+# port sums in int64.  Both then multiply once by the same f32 constant and
+# cast once, so the histograms agree bit for bit, bf16 output included.
+@pytest.mark.parametrize("form,out_dtype", [("windowed", torch.bfloat16),
+                                            ("windowed", torch.float32),
+                                            ("dense", torch.float32)])
+@pytest.mark.parametrize("binary", [False, True], ids=["weighted", "binary"])
+def test_int8_binning_matches_pallas_exactly(form, out_dtype, binary):
+    rng = np.random.default_rng(14)
+    G, E = 3, 2500
+    hs, ws = (128, 256) if form == "windowed" else (48, 256)
+    hx, hy, w = _events(rng, G, E, hs, ws, binary)
+    args = (jnp.asarray(hx), jnp.asarray(hy), jnp.asarray(w))
+    if form == "windowed":
+        want = jbin.bin_events_pallas_windowed(
+            *args, hs=hs, ws=ws, int8=True, binary_w=binary,
+            out_dtype=JAX_DTYPES[out_dtype], interpret=True)
+    else:
+        want = jbin.bin_events_pallas(*args, hs=hs, ws=ws, int8=True, interpret=True)
+    got = tbin.bin_events(torch.as_tensor(hx), torch.as_tensor(hy), torch.as_tensor(w),
+                          hs=hs, ws=ws, binary_w=binary, int8=True, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == (G, hs, ws)
+    np.testing.assert_array_equal(to_np(got), np.asarray(want, np.float32))
+
+
+@pytest.mark.parametrize("binary", [False, True], ids=["weighted", "binary"])
+def test_dense_binning_matches_pallas(binary):
+    """hs % 64 != 0: the JAX package's dense kernel, the same kernel here."""
+    rng = np.random.default_rng(15)
+    G, E, hs, ws = 2, 2000, 48, 256
+    hx, hy, w = _events(rng, G, E, hs, ws, binary)
+    want = jbin.bin_events_pallas(jnp.asarray(hx), jnp.asarray(hy), jnp.asarray(w),
+                                  hs=hs, ws=ws, interpret=True)
+    got = tbin.bin_events(torch.as_tensor(hx), torch.as_tensor(hy), torch.as_tensor(w),
+                          hs=hs, ws=ws, binary_w=binary)
+    assert_bf16_close(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("bad", [1.5, -0.25])
+def test_int8_binning_rejects_weights_outside_unit_interval(bad):
+    w = torch.tensor([[1.0, bad]])
+    with pytest.raises(ValueError, match=r"\[0, 1\]"):
+        tbin.bin_events(torch.zeros(1, 2), torch.zeros(1, 2), w, hs=4, ws=4, int8=True)

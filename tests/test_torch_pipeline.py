@@ -31,7 +31,7 @@ def _graft_fixture():
 def test_small_golden_chip_gate():
     """The port's process_1 + get_depth_map on golden.SMALL with the kernel
     spec clears the JAX chip tier's budget against the exact-scatter anchor."""
-    mappers, events, trajs, scene, ts_rv = tgolden.build_golden_fixture(tgolden.SMALL)
+    mappers, events, trajs, scene, ts_rv = tgolden.build_golden_fixture(tgolden.SMALL, device="cpu")
     spec = tgolden.production_backend_spec(events, 1024, cfg=tgolden.SMALL)
     assert spec == "hist:g4,seg8,bf,pl"
     vopts = tpipe.VotingOptions(packet_size=1024, backend=spec, pad_policy="bucket")
@@ -52,7 +52,7 @@ def test_fixture_events_match_the_jax_fixture(name):
     """The port's fixture votes exactly the events the anchors were made from."""
     _, jev, *_ = jgolden.build_golden_fixture(cfg=getattr(jgolden, name))
     cfg = getattr(tgolden, name)
-    _, tev, _, scene, _ = tgolden.build_golden_fixture(cfg)
+    _, tev, _, scene, _ = tgolden.build_golden_fixture(cfg, device="cpu")
     assert [e.num for e in tev] == tgolden.golden_meta(cfg)["events"]
     for a, b in zip(jev, tev):
         for f in ("x", "y", "t"):
@@ -92,7 +92,7 @@ def test_process_1_slice_matches_jax(graft):
     jdm = jmapper.get_depth_map(mappers[0], jres.fused_dsi, jex.DepthMapOptions())
     tm = [convert.mapper(m) for m in mappers]
     tres = tpipe.process_1(tm, [convert.events(e) for e in events],
-                           [convert.trajectory(t) for t in trajs], 0.5, stereo_fusion=2,
+                           [convert.trajectory(t, "cpu") for t in trajs], 0.5, stereo_fusion=2,
                            vopts=tpipe.VotingOptions(packet_size=packet_size, backend=spec))
     tdm = tmapper.get_depth_map(tm[0], tres.fused_dsi, tex.DepthMapOptions())
     want = np.asarray(jres.fused_dsi, np.float64)
@@ -118,7 +118,7 @@ def test_evaluate_dsi_scatter_matches_jax(graft, rectify, pad):
         rectify=rectify, pad=pad))
     got = to_np(tmapper.evaluate_dsi(
         convert.mapper(mappers[0]), convert.events(events[0]),
-        convert.trajectory(trajs[0]), convert.se3(T_rv_w), packet_size=packet_size,
+        convert.trajectory(trajs[0], "cpu"), convert.se3(T_rv_w, "cpu"), packet_size=packet_size,
         rectify=rectify, pad=pad))
     assert np.abs(got - want).sum() / np.abs(want).sum() < 1e-4
     assert tmapper.bucket_capacity(events[0].num, packet_size) == \
@@ -129,15 +129,16 @@ def test_small_chunk_votes_nothing(graft):
     mappers, events, trajs, T_rv_w, packet_size = graft
     ev = convert.events(events[0])
     tiny = tmapper.Events(ev.x[:packet_size], ev.y[:packet_size], ev.t[:packet_size])
-    assert tmapper.evaluate_dsi(convert.mapper(mappers[0]), tiny, convert.trajectory(trajs[0]),
-                                convert.se3(T_rv_w), packet_size=packet_size) is None
+    assert tmapper.evaluate_dsi(convert.mapper(mappers[0]), tiny,
+                                convert.trajectory(trajs[0], "cpu"),
+                                convert.se3(T_rv_w, "cpu"), packet_size=packet_size) is None
 
 
 def test_place_reference_view_matches_jax(graft):
     _, _, trajs, _, _ = graft
     J = jpipe.place_reference_view(trajs[0], 0.5, rv_pos=0.3)
-    T = tpipe.place_reference_view(convert.trajectory(trajs[0]), 0.5, rv_pos=0.3)
+    T = tpipe.place_reference_view(convert.trajectory(trajs[0], "cpu"), 0.5, rv_pos=0.3)
     np.testing.assert_allclose(to_np(T.t), np.asarray(J.t), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(to_np(T.q), np.asarray(J.q), rtol=1e-5, atol=1e-6)
     with pytest.raises(ValueError):
-        tpipe.place_reference_view(convert.trajectory(trajs[0]), 5.0)
+        tpipe.place_reference_view(convert.trajectory(trajs[0], "cpu"), 5.0)

@@ -5,9 +5,10 @@ warps the events, both packages vote the same packets.  The JAX side runs
 its Pallas kernels in interpret mode (as its own tests do), the port its
 kernels' plain versions.  Tolerance: DSI relative L1 < 1e-2 and per-camera
 vote mass within 0.5 % (the golden budget's `per_camera_mass_rel`).  Both
-vote through bf16 histograms and merge levels rounded at the same points;
-what differs is f32 summation order, which flips a bf16 rounding now and
-then (one 2^-8 step on a few voxels), far below 1e-2 in L1.
+vote through bf16 (or f32) histograms and merge levels, with bf16 or int8
+binning taps, rounded at the same points; what differs is f32 summation
+order, which flips a bf16 rounding now and then (one 2^-8 step on a few
+voxels), far below 1e-2 in L1.
 """
 
 import importlib.util
@@ -62,21 +63,68 @@ def rig_packets():
     return out, depths, vp, m.width, m.height
 
 
-@pytest.mark.parametrize("spec", ["hist:g2,seg4,bf,pl", "hist:g2,seg8,bf,pl"],
-                         ids=["radix4", "radix8-fanin-merge"])
+# Every form of the kernel-engine grammar: the butterfly at radix 4 and 8,
+# int8 binning, the flat merge (also at a segment count that is not a power
+# of two), the non-segmented sweep, supersampling, f32 histograms, no sweep
+# correction with custom padding, and segment counts above the plane count.
+SPECS = {
+    "radix4": "hist:g2,seg4,bf,pl",
+    "radix8-fanin-merge": "hist:g2,seg8,bf,pl",
+    "i8": "hist:g2,seg4,bf,i8,pl",
+    "flat": "hist:g2,seg4,pl",
+    "sweep": "hist:g2,pl",
+    "ss2": "hist:g2,ss2,seg4,bf,pl",
+    "f32": "hist:g2,seg4,bf,f32,pl",
+    "nocorr-pad": "hist:g2,seg4,bf,nocorr,px96,py16,pl",
+    "flat-seg5": "hist:g2,seg5,pl",
+    # More segments than the rig's 16 planes: the segment clamp.
+    "clamp-butterfly": "hist:g2,seg32,bf,pl",
+    "clamp-flat": "hist:g2,seg20,pl",
+    # Specs the first slice of the port refused.
+    "g4-ss2-radix8": "hist:g4,ss2,seg8,bf,pl",
+    "g4-flat-seg8": "hist:g4,seg8,pl",
+    "g4-sweep-bf": "hist:g4,bf,pl",
+    "g4-radix8-nocorr": "hist:g4,seg8,bf,pl,nocorr",
+    "g4-radix8-i8": "hist:g4,seg8,bf,pl,i8",
+}
+
+
+def _assert_dsi_close(got, want, what):
+    got, want = got.astype(np.float64), want.astype(np.float64)
+    assert got.shape == want.shape, what
+    l1 = np.abs(got - want).sum() / np.abs(want).sum()
+    assert l1 < 1e-2, f"{what}: relative L1 {l1:.3g}"
+    mass = got.sum() / want.sum() - 1
+    assert abs(mass) < 0.005, f"{what}: mass off by {mass:.3g}"
+
+
+def _vote_both(spec, p, depths, vp, W, H):
+    want = np.asarray(jvoting.resolve_backend(spec)(
+        p, jnp.asarray(depths), float(depths[0]), vp, W, H))
+    got = to_np(tvoting.resolve_backend(spec)(
+        convert.packets(p, "cpu"), torch.as_tensor(depths), float(depths[0]), vp, W, H))
+    return got, want
+
+
+@pytest.mark.parametrize("spec", list(SPECS.values()), ids=list(SPECS))
 def test_splat_hist_matches_jax(rig_packets, spec):
     packets, depths, vp, W, H = rig_packets
     for cam, p in enumerate(packets):
-        want = np.asarray(jvoting.resolve_backend(spec)(
-            p, jnp.asarray(depths), float(depths[0]), vp, W, H), np.float64)
-        got = to_np(tvoting.resolve_backend(spec)(
-            convert.packets(p), torch.as_tensor(depths), float(depths[0]), vp, W, H)
-        ).astype(np.float64)
-        assert got.shape == want.shape == (len(depths), H, W)
-        l1 = np.abs(got - want).sum() / np.abs(want).sum()
-        assert l1 < 1e-2, f"camera {cam}: relative L1 {l1:.3g}"
-        mass = got.sum() / want.sum() - 1
-        assert abs(mass) < 0.005, f"camera {cam}: mass off by {mass:.3g}"
+        got, want = _vote_both(spec, p, depths, vp, W, H)
+        assert got.shape == (len(depths), H, W)
+        _assert_dsi_close(got, want, f"camera {cam}")
+
+
+@pytest.mark.parametrize("spec", ["hist:g2,seg4,bf,pl", "hist:g2,seg4,bf,i8,pl"],
+                         ids=["bf16", "i8"])
+def test_splat_hist_fractional_weights_match_jax(rig_packets, spec):
+    """Fractional per-event weights: the binning stage's non-binary path
+    (weights ride into the y tap before its rounding)."""
+    packets, depths, vp, W, H = rig_packets
+    p = packets[0]
+    w = np.random.default_rng(16).uniform(0.05, 1.0, p.xy_z0.shape[:2]).astype(np.float32)
+    got, want = _vote_both(spec, p._replace(weight=jnp.asarray(w)), depths, vp, W, H)
+    _assert_dsi_close(got, want, "fractional weights")
 
 
 def test_group_histograms_match_jax(rig_packets):
@@ -91,7 +139,7 @@ def test_group_histograms_match_jax(rig_packets):
             p, 2, hs, ws, 128, 32, 1, correction=corr, engine="pallas",
             out_dtype=jnp.bfloat16)
         th, tc = tvh.build_group_histograms(
-            convert.packets(p), 2, hs, ws, 128, 32, 1,
+            convert.packets(p, "cpu"), 2, hs, ws, 128, 32, 1,
             correction=(*corr[:5], torch.tensor(u_mid, dtype=torch.float32)),
             out_dtype=torch.bfloat16)
         np.testing.assert_allclose(to_np(tc), np.asarray(jc), rtol=1e-5, atol=1e-6)
@@ -122,9 +170,10 @@ def test_headline_spec_is_literal():
     assert tvh.auto_backend_spec(0.5, 1024, 576.0, 2.0, 40.0, 100) == "hist:g16,seg16,bf,pl"
 
 
-@pytest.mark.parametrize("spec", ["sort", "hist", "hist_exact", "hist:g4,ss2,seg8,bf,pl",
-                                  "hist:g4,seg8,pl", "hist:g4,seg8,bf", "hist:g4,bf,pl",
-                                  "hist:g4,seg8,bf,pl,nocorr", "hist:g4,seg8,bf,pl,i8"])
+# Specs the port does not run: the JAX package's other backends and, without
+# "pl", its one-hot-matmul engine (ROADMAP Queue 1 item 1); unknown tokens.
+@pytest.mark.parametrize("spec", ["sort", "hist", "hist_exact", "hist:g4,seg8,bf",
+                                  "hist:g4,ss2,seg5", "hist:g4,seg8,bf,pl,fast"])
 def test_resolve_backend_refuses_unported_specs(spec):
     with pytest.raises(ValueError):
         tvoting.resolve_backend(spec)

@@ -12,8 +12,10 @@ Phases (each raises on failure, so the script exits non-zero):
   2. build   -- nvcc the sources in dvs_mcemvs_torch/csrc/, all at once;
   3. kernels -- kernel vs plain version on the card, error and CUDA-event
                 times, at the headline shapes: binning (f32 taps and int8,
-                windowed and dense grids), both resample call forms, the
-                four platform probes;
+                windowed and dense grids), both resample call forms and the
+                edges of the resample kernel's two paths (scale 0.3, bands
+                off the source edge, a ragged output), the four platform
+                probes;
   4. chunk   -- process_1 + get_depth_map on 2 x 1 Mi events, 640x480x100,
                 with the auto-selected spec; every kernel must have run;
   5. golden  -- BENCH16 (2 x 262,144 events) on the literal spec, scored
@@ -212,6 +214,54 @@ def _sweep_inputs(dev, S, K, Z, hs, ws, rng):
     return blocks, sy, ty, sx, tx, out_idx
 
 
+def resample_edge_cases(dev, hist, rng, iters) -> float:
+    """Kernel B at the edges of its two paths, through banded_resample_sum
+    against its plain version; logs each case's time.  Returns the largest
+    error.  The cases: maps at scale ~0.3, whose tile bands are wider than
+    the staging buffer, so every tile runs the per-pixel loop; translations
+    that put part of each band off the source, with the last source of every
+    item at scale ~0.3, so that blocks mix both paths; an output height and
+    width that are not multiples of the 16 x 128 tile, from f32 sources, 70
+    a plane (more than the kernel holds tile boxes for at once)."""
+    from dvs_mcemvs_torch.kernels import resample
+
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def case(label, h, scale, t_y, t_x, out_h, out_w, out_dtype):
+        J, K = scale.shape
+        src = rng.integers(0, h.shape[0], (J, K)).astype(np.int32)
+        sy = torch.as_tensor(scale + rng.uniform(-5e-3, 5e-3, (J, K)), **f32)
+        sx = torch.as_tensor(scale + rng.uniform(-5e-3, 5e-3, (J, K)), **f32)
+        ty, tx = torch.as_tensor(t_y, **f32), torch.as_tensor(t_x, **f32)
+
+        def run():
+            return resample.banded_resample_sum(h, sy, ty, sx, tx, out_h=out_h, out_w=out_w,
+                                                blocked=True, src=src, out_dtype=out_dtype)
+
+        want = resample.banded_resample_reference(
+            h, torch.as_tensor(src, dtype=torch.long, device=dev), sy, ty, sx, tx,
+            torch.arange(J, device=dev), n_out=J, out_h=out_h, out_w=out_w, out_dtype=out_dtype)
+        what = (f"{label} ({J}x{K}, {h.shape[1]}x{h.shape[2]} {str(h.dtype).split('.')[-1]} -> "
+                f"{out_h}x{out_w} {str(out_dtype).split('.')[-1]})")
+        err = compare(f"banded_resample_sum {what}", run(), want)
+        log(f"  banded_resample_sum {what}: {cuda_ms(run, iters):.4f} ms")
+        return err
+
+    def signed(lo, hi, shape):
+        return rng.choice([-1.0, 1.0], shape) * rng.uniform(lo, hi, shape)
+
+    _, hs, ws = hist.shape
+    scale_off = np.ones((64, 4))
+    scale_off[:, -1] = 0.3
+    return max(
+        case("wide band, scale 0.3", hist, np.full((16, 4), 0.3), rng.uniform(-1, 1, (16, 4)),
+             rng.uniform(-1, 1, (16, 4)), 160, 256, torch.bfloat16),
+        case("bands off the source edge", hist, scale_off, signed(0.15 * hs, 0.45 * hs, (64, 4)),
+             signed(0.2 * ws, 0.55 * ws, (64, 4)), hs, ws, torch.bfloat16),
+        case("ragged output", hist.float(), np.ones((20, 70)), rng.uniform(-3, 3, (20, 70)),
+             rng.uniform(-3, 3, (20, 70)), 470, 630, torch.float32))
+
+
 def wrappers() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
     from dvs_mcemvs_torch.kernels import binning, probes, resample
@@ -365,7 +415,7 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
             torch.arange(Z, device=dev), n_out=Z, out_h=Ho, out_w=Wo))
     log(f"  banded_resample_sum flat merge: {cuda_ms(flat, iters):.4f} ms; sweep form: "
         f"{cuda_ms(sweep_form, 2):.4f} ms")
-    err = max(err, err_flat, err_sweep)
+    err = max(err, err_flat, err_sweep, resample_edge_cases(dev, hist, rng, iters))
     results["banded_resample_sum"] = dict(
         max_abs_err=err, ms=cuda_ms(merge, iters), plain_ms=cuda_ms(merge_plain, 2),
         library_ms=None,

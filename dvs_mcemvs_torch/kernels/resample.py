@@ -30,7 +30,7 @@ import torch
 from . import _build
 
 _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
-_MAX_ITEMS = 65535   # CUDA grid z limit: one z-slice per item
+_MAX_ITEMS = 65535   # items per call the kernel takes (csrc/resample.cu)
 _REFERENCE_BYTES = 2**28  # working-set bound of one batch of the plain version
 
 

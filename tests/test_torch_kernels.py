@@ -74,22 +74,36 @@ def _maps(rng, shape, scale, shift):
     return s, t
 
 
-# (scale, scale_min): one single-strip map and one whose band is wider than
-# the TPU kernel's strip, which runs extra strips there.
-SCALES = [(1.0, 2.0 / 3.0), (0.45, 2.0 / 3.0)]
+# Map cases: (scale, translation y, translation x, out_h).  A single-strip
+# map and one whose band is wider than the TPU kernel's strip (2/3 scale_min),
+# which runs extra strips there; a band narrower than the CUDA kernel's
+# 16 x 128 output tile (1.6); a scale whose bands at full size are wider
+# than the CUDA kernel's staging buffer (0.3); translations that push each
+# band past the source's bottom and left edges; an output height that is
+# not a multiple of either kernel's tile.
+MAP_CASES = {
+    "in-band": (1.0, 4.0, 8.0, 48),
+    "below-scale-min": (0.45, 4.0, 8.0, 48),
+    "scale-1.6": (1.6, 4.0, 8.0, 48),
+    "scale-0.3": (0.3, 4.0, 8.0, 48),
+    "off-edge": (1.0, -30.0, 90.0, 48),
+    "ragged-out-h": (1.0, 4.0, 8.0, 44),
+}
 
 
-@pytest.mark.parametrize("scale,scale_min", SCALES, ids=["in-band", "below-scale-min"])
+@pytest.mark.parametrize("scale,shift_y,shift_x,Ho", list(MAP_CASES.values()),
+                         ids=list(MAP_CASES))
 @pytest.mark.parametrize("mode", ["sweep", "blocked", "src"])
-def test_resample_sum_matches_pallas(mode, scale, scale_min):
+def test_resample_sum_matches_pallas(mode, scale, shift_y, shift_x, Ho):
     rng = np.random.default_rng(11)
-    N, K, hs, ws, Ho, Wo = 3, 2, 64, 256, 48, 128
+    N, K, hs, ws, Wo = 3, 2, 64, 256, 128
+    scale_min = 2.0 / 3.0
     G = {"sweep": K, "blocked": N * K, "src": 5}[mode]
     hist = rng.uniform(0, 4, (G, hs, ws)).astype(np.float32)
     hist_j = jnp.asarray(hist, jnp.bfloat16)
     hist_t = torch.as_tensor(hist).to(torch.bfloat16)
-    sy, ty = _maps(rng, (N, K), scale, 4.0)
-    sx, tx = _maps(rng, (N, K), scale, 8.0)
+    sy, ty = _maps(rng, (N, K), scale, shift_y)
+    sx, tx = _maps(rng, (N, K), scale, shift_x)
     src = rng.integers(0, G, (N, K)).astype(np.int32) if mode == "src" else None
     out_dtype = torch.float32 if mode == "sweep" else torch.bfloat16
     want = jres.banded_resample_sum(
@@ -120,9 +134,13 @@ def test_resample_sum_float32_sources():
                                atol=1e-5 * float(np.abs(want).max()))
 
 
-@pytest.mark.parametrize("K,scale", [(2, 1.0), (2, 0.45), (32, 1.0)],
-                         ids=["in-band", "below-scale-min", "K32"])
-def test_resample_fanin_matches_pallas(K, scale):
+FANIN_CASES = {**{name: (2, *case) for name, case in MAP_CASES.items()},
+               "K32": (32, 1.0, 4.0, 8.0, 16)}
+
+
+@pytest.mark.parametrize("K,scale,shift_y,shift_x,Ho", list(FANIN_CASES.values()),
+                         ids=list(FANIN_CASES))
+def test_resample_fanin_matches_pallas(K, scale, shift_y, shift_x, Ho):
     """Ragged segments padded with clamped duplicate plane indices, as the
     plane sweep builds them.  Duplicate steps carry their own (random) maps
     here, so the port must also keep the TPU grid's last writer."""
@@ -132,10 +150,10 @@ def test_resample_fanin_matches_pallas(K, scale):
     M = max(bounds[s + 1] - bounds[s] for s in range(S))
     out_idx = np.stack([np.minimum(bounds[s] + np.arange(M), bounds[s + 1] - 1)
                         for s in range(S)]).astype(np.int32)
-    hs, ws, Ho, Wo = (64, 256, 48, 128) if K == 2 else (16, 128, 16, 128)
+    hs, ws, Wo = (64, 256, 128) if K == 2 else (16, 128, 128)
     blocks = rng.uniform(0, 4, (S, K, hs, ws)).astype(np.float32)
-    sy, ty = _maps(rng, (S, M, K), scale, 4.0)
-    sx, tx = _maps(rng, (S, M, K), scale, 8.0)
+    sy, ty = _maps(rng, (S, M, K), scale, shift_y)
+    sx, tx = _maps(rng, (S, M, K), scale, shift_x)
     want = jres.banded_resample_fanin(
         jnp.asarray(blocks, jnp.bfloat16), *(jnp.asarray(a) for a in (sy, ty, sx, tx)),
         jnp.asarray(out_idx), n_out=bounds[-1], out_h=Ho, out_w=Wo,

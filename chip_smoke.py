@@ -12,10 +12,12 @@ Phases (each raises on failure, so the script exits non-zero):
   2. build   -- nvcc the sources in dvs_mcemvs_torch/csrc/, all at once;
   3. kernels -- kernel vs plain version on the card, error and CUDA-event
                 times, at the headline shapes: binning (f32 taps and int8,
-                windowed and dense grids), both resample call forms and the
-                edges of the resample kernel's two paths (scale 0.3, bands
-                off the source edge, a ragged output), the four platform
-                probes;
+                windowed and dense grids; the ss2 grid, events on every band
+                edge, 64-bit int8 sums, a ragged 552 x 830 grid; its launch
+                plans, cluster occupancy and ptxas report), both resample
+                call forms and the edges of the resample kernel's two paths
+                (scale 0.3, bands off the source edge, a ragged output), the
+                four platform probes;
   4. chunk   -- process_1 + get_depth_map on 2 x 1 Mi events, 640x480x100,
                 with the auto-selected spec; every kernel must have run;
   5. golden  -- BENCH16 (2 x 262,144 events) on the literal spec, scored
@@ -262,6 +264,86 @@ def resample_edge_cases(dev, hist, rng, iters) -> float:
              rng.uniform(-3, 3, (20, 70)), 470, 630, torch.float32))
 
 
+def log_binning_plan(dev, what, hs, ws, E, int8, out_dtype):
+    """Log kernel A's launch plan for one case and how many of its clusters
+    the card holds at once (cudaOccupancyMaxActiveClusters)."""
+    from dvs_mcemvs_torch.kernels import binning
+
+    p = binning.plan(hs, ws, E, int8)
+    occupancy = (binning.max_active_clusters(p, out_dtype == torch.bfloat16)
+                 if dev.type == "cuda" else "not measured")
+    log(f"  bin_events plan {what} ({hs}x{ws}, E={E}): {p.acc} sums, C={p.cluster}, "
+        f"R={p.rows}, {p.bands} bands, {p.smem_bytes} bytes of shared memory a block; "
+        f"max active clusters {occupancy}")
+
+
+def binning_edge_cases(dev, G, E, hs, ws, iters) -> dict:
+    """Kernel A beyond phase 3's four binning rows, each against its plain
+    version (int8: bit for bit); logs each case's time.  The cases: the ss2
+    grid (2 hs x 2 ws, several bands a group); events on every block and
+    band edge of the headline grid's plan (rows lo - 1, lo - 0.5, lo) and on
+    its last row, under the plan and under clusters of 8 blocks (adds into
+    the other blocks' shared memory); the 64-bit int8 sums (2 groups of
+    300,000 events, 280,000 of them on one bin, whose sum passes 2^32); a
+    ragged 552 x 830 grid (rows and output spans off the 16-byte
+    boundaries).  Returns the largest error of the f32-tap cases and of the
+    int8 ones, {False: e, True: e}."""
+    from dvs_mcemvs_torch.kernels import binning
+
+    rng = np.random.default_rng(5)
+    f32 = dict(dtype=torch.float32, device=dev)
+    errs = {False: 0.0, True: 0.0}
+
+    def events(G_, E_, h, w_cols):
+        hx = rng.uniform(0, w_cols - 1, (G_, E_))
+        hy = np.sort(rng.normal(h / 2, h / 5, (G_, E_)).clip(0, h - 1))
+        w = rng.uniform(0, 1, (G_, E_)) * (rng.uniform(size=(G_, E_)) > 0.1)
+        return hx, hy, w
+
+    def case(label, hx, hy, w, h, w_cols, int8, out_dtype, cluster=binning.CLUSTER):
+        hx, hy, w = (torch.as_tensor(a, **f32) for a in (hx, hy, w))
+        G_, E_ = hx.shape
+        p = binning.plan(h, w_cols, E_, int8, cluster=cluster)
+
+        def run():
+            if dev.type == "cuda" and cluster != binning.CLUSTER:
+                return binning.launch(hx, hy, w, p, out_dtype)
+            return binning.bin_events(hx, hy, w, hs=h, ws=w_cols, int8=int8,
+                                      out_dtype=out_dtype)
+
+        plain = binning.bin_events_int8_reference if int8 else binning.bin_events_reference
+        want = plain(hx, hy, w, h, w_cols).to(out_dtype)
+        what = (f"{label} ({G_}x{E_} -> {G_}x{h}x{w_cols} {str(out_dtype).split('.')[-1]}; "
+                f"{p.acc} sums, C={p.cluster}, R={p.rows}, {p.bands} bands)")
+        err = (compare_exact if int8 else compare)(f"bin_events {what}", run(), want)
+        errs[int8] = max(errs[int8], err)
+        log(f"  bin_events {label}: {cuda_ms(run, iters):.4f} ms")
+
+    ss2 = events(G, E, 2 * hs, 2 * ws)
+    case("ss2", *ss2, 2 * hs, 2 * ws, False, torch.float32)
+    case("ss2 int8", *ss2, 2 * hs, 2 * ws, True, torch.bfloat16)
+
+    hx, hy, w = events(G, E, hs, ws)
+    on_edge = rng.uniform(size=(G, E)) < 0.5
+    for cluster in (binning.CLUSTER, 8):
+        lows = [lo for lo, _ in binning.plan(hs, ws, E, False, cluster=cluster).block_rows()
+                if 0 < lo < hs]
+        edge_rows = np.array([y for lo in lows for y in (lo - 1, lo - 0.5, lo)] + [hs - 1])
+        hy = np.where(on_edge, rng.choice(edge_rows, (G, E)), hy)
+        tag = "" if cluster == binning.CLUSTER else f", C={cluster}"
+        case(f"band edges{tag}", hx, hy, w, hs, ws, False, torch.bfloat16, cluster)
+        case(f"band edges int8{tag}", hx, hy, w, hs, ws, True, torch.bfloat16, cluster)
+
+    hx, hy, w = events(2, 300_000, hs, ws)
+    hx[:, :280_000], hy[:, :280_000], w[:, :280_000] = ws // 2, hs // 2, 1.0
+    case("int8 u64", hx, hy, w, hs, ws, True, torch.float32)
+
+    ragged = events(G, E, 552, 830)
+    case("ragged", *ragged, 552, 830, False, torch.bfloat16)
+    case("ragged int8", *ragged, 552, 830, True, torch.float32)
+    return errs
+
+
 def wrappers() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
     from dvs_mcemvs_torch.kernels import binning, probes, resample
@@ -312,7 +394,7 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
     """Each kernel against its plain version on `dev` at the given shapes.
     Returns {kernel name: {max_abs_err, ms, plain_ms, library_ms, bound_ms,
     bound_by}}."""
-    from dvs_mcemvs_torch.kernels import binning, probes, resample
+    from dvs_mcemvs_torch.kernels import _build, binning, probes, resample
 
     rng = np.random.default_rng(0)
     results = {}
@@ -332,6 +414,7 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
     def binning_row(h, int8, out_dtype, what):
         hx, hy = events(h)
         plain_fn = binning.bin_events_int8_reference if int8 else binning.bin_events_reference
+        log_binning_plan(dev, what, h, ws, E, int8, out_dtype)
         errs = []
         for label, w_np in weights.items():
             w = torch.as_tensor(w_np, **f32)
@@ -361,6 +444,18 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
                                                               dense_i8["max_abs_err"]))
     log(f"  bin_events int8 dense: kernel {dense_i8['ms']:.4f} ms, "
         f"plain {dense_i8['plain_ms']:.4f} ms")
+    w_check = torch.as_tensor(weights["weighted"], **f32)
+    log(f"  bin_events int8 weight check alone (inside the int8 rows' times): "
+        f"{cuda_ms(lambda: binning._check_weights(w_check, False, True), iters):.4f} ms")
+    report = _build.BUILD_INFO.get("binning", (0.0, ""))[1]
+    for line in report.splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            log(f"  binning ptxas: {line.strip()}")
+    edge_errs = binning_edge_cases(dev, G, E, hs, ws, iters)
+    results["bin_events"]["max_abs_err"] = max(results["bin_events"]["max_abs_err"],
+                                               edge_errs[False])
+    results["bin_events_int8"]["max_abs_err"] = max(results["bin_events_int8"]["max_abs_err"],
+                                                    edge_errs[True])
 
     # Kernel B through banded_resample_sum: one radix-4 merge level.
     hist, sy, ty, tx, src = _merge_level_inputs(dev, G, hs, ws, rng)

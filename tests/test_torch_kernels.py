@@ -205,8 +205,71 @@ def test_dense_binning_matches_pallas(binary):
     assert_bf16_close(got, np.asarray(want))
 
 
-@pytest.mark.parametrize("bad", [1.5, -0.25])
+@pytest.mark.parametrize("bad", [1.5, -0.25, float("nan")])
 def test_int8_binning_rejects_weights_outside_unit_interval(bad):
     w = torch.tensor([[1.0, bad]])
     with pytest.raises(ValueError, match=r"\[0, 1\]"):
         tbin.bin_events(torch.zeros(1, 2), torch.zeros(1, 2), w, hs=4, ws=4, int8=True)
+
+
+# The kernel's launch plan (kernels/binning.plan): bands of rows a group,
+# one cluster of blocks a band, R rows of sums a block in shared memory.
+PLAN_CASES = {
+    "headline": (576, 896, 16384, False),
+    "headline-int8": (576, 896, 16384, True),
+    "dense": (552, 896, 16384, False),
+    "ss2": (1152, 1792, 16384, False),
+    "px96-py16": (512, 832, 16384, False),
+    "tiny": (64, 128, 2500, False),
+    "int8-u64": (576, 896, 300_000, True),
+}
+
+
+@pytest.mark.parametrize("hs,ws,E,int8", list(PLAN_CASES.values()), ids=list(PLAN_CASES))
+def test_binning_plan_partitions_rows(hs, ws, E, int8):
+    p = tbin.plan(hs, ws, E, int8)
+    for spans, n in ((p.block_rows(), p.bands * p.cluster), (p.band_rows(), p.bands)):
+        assert len(spans) == n
+        assert spans[0][0] == 0 and spans[-1][1] == hs
+        for (lo0, hi0), (lo1, hi1) in zip(spans, spans[1:]):
+            assert lo0 <= hi0 == lo1 <= hi1      # in order, no gap, no overlap
+    assert all(hi - lo <= p.rows for lo, hi in p.block_rows())
+    assert 1 <= p.cluster <= 8
+    acc_bytes = {"f32": 4, "u32": 4, "u64": 8}[p.acc]
+    assert p.smem_bytes >= p.rows * ws * acc_bytes + tbin.STAGE_BYTES
+    assert p.smem_bytes <= 232_448
+    assert p.acc == ("f32" if not int8 else "u32" if E <= 266_288 else "u64")
+    if p.acc == "u64":
+        assert tbin.max_rows(ws, "u64") == tbin.max_rows(ws, "u32") // 2
+        assert tbin.plan(hs, ws, 266_288, True).acc == "u32"
+        assert tbin.plan(hs, ws, 266_289, True).acc == "u64"
+    with pytest.raises(ValueError, match="ws <="):
+        tbin.plan(hs, 60_000, E, int8)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+def test_binning_bands_sum_to_whole(int8):
+    """The plain version restricted to each band's (and each block's) rows,
+    concatenated, is the whole histogram, with events on every edge."""
+    rng = np.random.default_rng(16)
+    G, E, hs, ws = 2, 3000, 64, 128
+    # Five rows a block at most, four blocks a cluster: four bands.
+    p = tbin.plan(hs, ws, E, int8, cluster=4, smem_limit=tbin.STAGE_BYTES + 5 * ws * 4)
+    assert p.bands > 1 and p.cluster == 4
+    hx, hy, w = _events(rng, G, E, hs, ws, binary=False)
+    edges = [lo for lo, _ in p.block_rows() if 0 < lo < hs]
+    on_edges = np.array([y for lo in edges for y in (lo - 1, lo - 0.5, lo)] + [hs - 1],
+                        np.float32)
+    hy[:, 100:100 + on_edges.size] = on_edges
+    hx[:, 100:100 + on_edges.size] = rng.uniform(0, ws - 1, on_edges.size)
+    w[:, 100:100 + on_edges.size] = 1.0
+    args = [torch.as_tensor(a) for a in (hx, hy, w)]
+    plain = tbin.bin_events_int8_reference if int8 else tbin.bin_events_reference
+    whole = plain(*args, hs, ws)
+    for spans in (p.band_rows(), p.block_rows()):
+        parts = torch.cat([plain(*args, hs, ws, rows=s) for s in spans], dim=1)
+        assert parts.shape == whole.shape
+        if int8:
+            assert torch.equal(parts, whole)
+        else:
+            torch.testing.assert_close(parts, whole, rtol=1e-6, atol=0)

@@ -29,9 +29,19 @@ Phases (each raises on failure, so the script exits non-zero):
                 small chunk on the card against the same chunk on the CPU;
   7. paths   -- the dense binning form (a grid whose height is not a
                 multiple of 64) and the platform probes (scripts/probe_gpu.py),
-                each with the launch counts of its own run.
-Each path's launch counts are read from a run that starts with every count
-at zero.  The line before the last is {"kernels": [...]}; the last line is
+                each with the launch counts of its own run;
+  8. pipelines -- process_2 and process_5 on the headline chunk (4
+                sub-intervals, AM and HM temporal fusion; vote mass additive
+                under AM), full_seq over 2 x 4 Mi events (about 9 chunks) from
+                RAM and from the native event store, the multi-frame golden
+                gate on the FULL fixture, and the CLI itself
+                (`dvs_mcemvs_torch.cli.main` on the esim fixture: process
+                1, 2, 5 and full_seq with checkpoint resume); each step with
+                its launches per kernel, seconds, Mev/s and peak memory.
+Phase 3 also holds kernels A and B against their plain versions past the
+65,535 groups or items a launch of the earlier kernels took.  Each path's
+launch counts are read from a run that starts with every count at zero.
+The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it prints no result.
 """
 
@@ -41,6 +51,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -87,6 +98,24 @@ N_TIMED = 10
 # 1e-4 of the largest value.  The int8 binning mode and the probes sum
 # exactly or in a fixed order on both sides: tolerance 0.
 RTOL, ATOL_OF_MAX = 2.0 ** -6, 1e-4
+
+# Phase 3's cases past the 65,535 groups or items a launch of the earlier
+# kernels took: binning G groups of E events into hs x ws (2.3 GB of f32 at
+# these numbers), then G resample items of K of those planes each.
+CAP_G, CAP_E, CAP_HS, CAP_WS, CAP_K = 70_000, 16, 64, 128, 2
+# Phase 8: sub-intervals of process_2/5; the full_seq streams (events per
+# camera) and their chunk length and stride as fractions of their time span;
+# a pipeline's per-camera temporal AM mass (times the sub-interval count)
+# against process_1's on the same events.
+N_INTERVALS = 4
+FULL_SEQ_EVENTS = 4 * N_EVENTS
+FULL_SEQ_DURATION, FULL_SEQ_SKIP = 0.2, 0.1
+TEMPORAL_MASS_REL = 0.01
+# The multi-frame golden gate of tests/test_golden.py (the JAX package's
+# production spec plus ~11 %): frames, median relative error, mean error
+# (m), bad-p.
+MULTIFRAME_GATE = {"frames": 5, "median_rel": 0.05, "mean_err": 1.9, "bad_p": 0.29}
+KERNELS_A_B = ("bin_events", "banded_resample_sum", "banded_resample_fanin")
 
 # The least time for a kernel's work on an H100 SXM (NVIDIA's data sheet):
 # its bytes (each input read once, each output written once) over the HBM3
@@ -344,6 +373,52 @@ def binning_edge_cases(dev, G, E, hs, ws, iters) -> dict:
     return errs
 
 
+def cap_cases(dev, G, E, hs, ws, K, iters) -> tuple:
+    """Kernels A and B past 65,535 groups or items a launch: bin G groups of
+    E events into (G, hs, ws) float32, then G resample items of K of those
+    planes (bf16) each into a bf16 plane, each against its plain version on
+    the same inputs.  Returns (binning error, resample error)."""
+    from dvs_mcemvs_torch.kernels import binning, resample
+
+    gen = torch.Generator(device=dev).manual_seed(65536)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    hx, hy = rand(G, E) * (ws - 1), rand(G, E) * (hs - 1)
+    w = rand(G, E) * (rand(G, E) > 0.1)
+
+    def run_a():
+        return binning.bin_events(hx, hy, w, hs=hs, ws=ws)
+
+    got = run_a()
+    err_a = compare(f"bin_events past the cap ({G}x{E} -> {G}x{hs}x{ws} float32, "
+                    f"{binning.plan(hs, ws, E, False)})", got,
+                    binning.bin_events_reference(hx, hy, w, hs, ws))
+    log(f"  bin_events past the cap: {cuda_ms(run_a, iters):.4f} ms")
+    src = got.to(torch.bfloat16)
+    del got
+    rng = np.random.default_rng(65536)
+    src_idx = rng.integers(0, G, (G, K)).astype(np.int32)
+    f32 = dict(dtype=torch.float32, device=dev)
+    sy = torch.as_tensor(1.0 + rng.uniform(-2e-3, 2e-3, (G, K)), **f32)
+    ty = torch.as_tensor(rng.uniform(-1.5, 1.5, (G, K)), **f32)
+    tx = torch.as_tensor(rng.uniform(-3.0, 3.0, (G, K)), **f32)
+
+    def run_b():
+        return resample.banded_resample_sum(src, sy, ty, sy, tx, out_h=hs, out_w=ws,
+                                            blocked=True, src=src_idx,
+                                            out_dtype=torch.bfloat16)
+
+    err_b = compare(f"banded_resample_sum past the cap ({G}x{K}, {hs}x{ws} bf16)", run_b(),
+                    resample.banded_resample_reference(
+                        src, torch.as_tensor(src_idx, dtype=torch.long, device=dev), sy, ty,
+                        sy, tx, torch.arange(G, device=dev), n_out=G, out_h=hs, out_w=ws,
+                        out_dtype=torch.bfloat16))
+    log(f"  banded_resample_sum past the cap: {cuda_ms(run_b, iters):.4f} ms")
+    return err_a, err_b
+
+
 def wrappers() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
     from dvs_mcemvs_torch.kernels import binning, probes, resample
@@ -390,8 +465,10 @@ def empty_calls_launch_nothing(dev):
 
 def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
                  Wo=WIDTH, Z=DIM_Z, S=16, K_sweep=4, K_wide=32, probe_h=PROBE_H,
-                 probe_w=PROBE_W, probe_g=PROBE_G, iters=10):
-    """Each kernel against its plain version on `dev` at the given shapes.
+                 probe_w=PROBE_W, probe_g=PROBE_G, iters=10,
+                 cap=(CAP_G, CAP_E, CAP_HS, CAP_WS, CAP_K)):
+    """Each kernel against its plain version on `dev` at the given shapes,
+    and kernels A and B past the old cap at `cap` = (G, E, hs, ws, K).
     Returns {kernel name: {max_abs_err, ms, plain_ms, library_ms, bound_ms,
     bound_by}}."""
     from dvs_mcemvs_torch.kernels import _build, binning, probes, resample
@@ -456,6 +533,8 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
                                                edge_errs[False])
     results["bin_events_int8"]["max_abs_err"] = max(results["bin_events_int8"]["max_abs_err"],
                                                     edge_errs[True])
+    cap_err_a, cap_err_b = cap_cases(dev, *cap, iters=2)
+    results["bin_events"]["max_abs_err"] = max(results["bin_events"]["max_abs_err"], cap_err_a)
 
     # Kernel B through banded_resample_sum: one radix-4 merge level.
     hist, sy, ty, tx, src = _merge_level_inputs(dev, G, hs, ws, rng)
@@ -510,7 +589,7 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
             torch.arange(Z, device=dev), n_out=Z, out_h=Ho, out_w=Wo))
     log(f"  banded_resample_sum flat merge: {cuda_ms(flat, iters):.4f} ms; sweep form: "
         f"{cuda_ms(sweep_form, 2):.4f} ms")
-    err = max(err, err_flat, err_sweep, resample_edge_cases(dev, hist, rng, iters))
+    err = max(err, err_flat, err_sweep, cap_err_b, resample_edge_cases(dev, hist, rng, iters))
     results["banded_resample_sum"] = dict(
         max_abs_err=err, ms=cuda_ms(merge, iters), plain_ms=cuda_ms(merge_plain, 2),
         library_ms=None,
@@ -848,6 +927,309 @@ def probe_phase(min_time=0.2):
     return res, read_counts()
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the temporal pipelines, full_seq, the multi-frame gate, the CLI
+# ---------------------------------------------------------------------------
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(dev) -> str:
+    if dev.type != "cuda":
+        return "not measured"
+    return f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
+
+
+def _check_launched(what: str, launches: dict, needed=KERNELS_A_B) -> None:
+    missing = [n for n in needed if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels not launched: {missing}")
+
+
+def _timed(dev, what, fn, n_events, runs, smi="") -> tuple:
+    """Run `fn` once with fresh launch counters (that run is the warm-up),
+    then `runs` times; log its launches, seconds (median and every sample),
+    Mev/s over `n_events` and peak memory.  Returns (first result, launches,
+    median seconds)."""
+    _reset_peak(dev)
+    zero_counts()
+    out = fn()
+    _sync(dev)
+    counts = read_counts()
+    launches = {n: counts[n] for n in KERNELS_A_B}
+    median, seconds = median_seconds(lambda: (fn(), _sync(dev)), runs)
+    log(f"  {what}: launches {launches}; seconds (median of {runs} after a warm-up) "
+        f"{median:.6f} [{', '.join(f'{t:.6f}' for t in seconds)}]; "
+        f"{n_events / median / 1e6:.3f} Mev/s; peak device memory {_peak(dev)}"
+        + (f"; {smi}" if smi else ""))
+    return out, launches, median
+
+
+def temporal_phase(dev, workload, masses, spec=HEADLINE_SPEC, intervals=N_INTERVALS,
+                   runs=3, smi="", needed=KERNELS_A_B):
+    """process_2 and process_5 on the chunk, with `intervals` sub-intervals,
+    under AM and HM temporal fusion: every DSI finite with the mapper's
+    shape, kernels A and B launched, and under AM each camera's temporal
+    mass times `intervals` within TEMPORAL_MASS_REL of its process_1 mass
+    `masses` on the same events.  Returns {(method, fusion): launches}."""
+    from dvs_mcemvs_torch import pipeline
+
+    mappers, events, trajs, _ = workload
+    if any(e.num % intervals for e in events):
+        raise ValueError(f"the chunk's events do not split into {intervals} equal parts")
+    Z, H, W = mappers[0].dsi_shape
+    vopts = pipeline.VotingOptions(packet_size=PACKET, backend=spec, pad_policy="bucket")
+    out = {}
+    for method in ("process_2", "process_5"):
+        for fusion, name in ((pipeline.TEMPORAL_AM, "AM"), (pipeline.TEMPORAL_HM, "HM")):
+            def run():
+                return getattr(pipeline, method)(
+                    mappers, events, trajs, 0.5, stereo_fusion=2, temporal_fusion=fusion,
+                    num_intervals=intervals, vopts=vopts)
+
+            what = f"{method} {name} ({intervals} sub-intervals, {spec})"
+            res, launches, _ = _timed(dev, what, run, sum(e.num for e in events), runs, smi)
+            for key, dsi in [("fused", res.fused_dsi), *res.dsis.items()]:
+                if tuple(dsi.shape) != (Z, H, W) or not bool(torch.isfinite(dsi).all()):
+                    raise AssertionError(f"{what}: DSI {key} has shape {tuple(dsi.shape)} "
+                                         "or is not finite")
+            if fusion == pipeline.TEMPORAL_AM:
+                rel = [intervals * float(res.dsis[k].double().sum()) / m - 1.0
+                       for k, m in zip(("left_temporal", "right_temporal"), masses)]
+                log(f"  {what}: {intervals} x temporal mass vs process_1, per camera "
+                    f"{', '.join(f'{r:+.5f}' for r in rel)}")
+                if max(abs(r) for r in rel) > TEMPORAL_MASS_REL:
+                    raise AssertionError(f"{what}: vote mass is not additive: {rel}")
+            _check_launched(what, launches, needed)
+            out[(method, name)] = launches
+            # Free this step's planes, so the next step's peak is its own.
+            del res, dsi
+    return out
+
+
+def full_seq_phase(dev, n_events=FULL_SEQ_EVENTS, duration=FULL_SEQ_DURATION,
+                   skip=FULL_SEQ_SKIP, runs=3, smi="", needed=KERNELS_A_B, **size):
+    """run_full_seq over the headline rig's streams tiled to `n_events` a
+    camera, chunks `duration` long every `skip` of their time span, each
+    chunk process_1 + get_depth_map on the CLI's auto spec; once from RAM
+    and once from native event stores.  Both must give the same chunks.
+    Returns {path: (chunk indices, launches, median seconds)}."""
+    from dvs_mcemvs_torch import mapper as mappermod, pipeline
+    from dvs_mcemvs_torch.io import evstore
+    from dvs_mcemvs_torch.ops import extract, voting_hist
+
+    mappers, events, trajs, rig = build_workload(dev, n_events=n_events, **size)
+    t_lo = min(float(e.t[0]) for e in events)
+    t_hi = max(float(e.t[-1]) for e in events)
+    fopts = pipeline.FullSeqOptions(start_time=t_lo, stop_time=t_hi,
+                                    duration=duration * (t_hi - t_lo),
+                                    out_skip=skip * (t_hi - t_lo))
+    # The CLI's auto spec for a chunk: the travel and the packets of one.
+    ts = trajs[0].ts.cpu().numpy()
+    m = mappers[0]
+    spec = voting_hist.auto_backend_spec(
+        rig.travel * fopts.duration / float(ts[-1] - ts[0]),
+        max(1, int(n_events * duration) // PACKET), m.vcam.fx, m.depth_vec.min_depth,
+        m.depth_vec.max_depth, m.depth_vec.n)
+    vopts = pipeline.VotingOptions(packet_size=PACKET, backend=spec, pad_policy="bucket")
+
+    def process(mps, evs, trs, t):
+        res = pipeline.process_1(mps, evs, trs, t, stereo_fusion=2, vopts=vopts)
+        res.extracted = mappermod.get_depth_map(mps[0], res.fused_dsi,
+                                                extract.DepthMapOptions())
+        return res
+
+    def chunks(runner):
+        idx = []
+        for k, _, res in runner:
+            if not bool(torch.isfinite(res.extracted.depth).all()):
+                raise AssertionError(f"full_seq chunk {k}: depth is not finite")
+            idx.append(k)
+        return idx
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_evs_") as d:
+        stores = []
+        for i, ev in enumerate(events):
+            evstore.write_store(os.path.join(d, f"events_{i}.evs"), ev)
+            stores.append(evstore.EventStore(os.path.join(d, f"events_{i}.evs")))
+        paths = {
+            "RAM": lambda: chunks(pipeline.run_full_seq(mappers, events, trajs, fopts,
+                                                        process)),
+            "event store": lambda: chunks(pipeline.run_full_seq_stores(
+                mappers, stores, trajs, fopts, process)),
+        }
+        # Events voted in a run: every chunk's, both cameras (Mev/s).
+        n_chunk_ev = sum(ev.time_window(*w[:2]).num
+                         for w in pipeline.full_seq_windows(fopts) for ev in events)
+        for path, fn in paths.items():
+            what = (f"full_seq from {path} (2 x {n_events} events, chunks of "
+                    f"{fopts.duration:.4f} s every {fopts.out_skip:.4f} s, {spec})")
+            idx, launches, median = _timed(dev, what, fn, n_chunk_ev, runs, smi)
+            log(f"  {what}: {len(idx)} chunks {idx}; {len(idx) / median:.3f} chunks/s")
+            _check_launched(what, launches, needed)
+            out[path] = (idx, launches, median)
+        for s_ in stores:
+            s_.close()
+    if out["RAM"][0] != out["event store"][0] or len(out["RAM"][0]) < 2:
+        raise AssertionError(f"full_seq chunks differ: RAM {out['RAM'][0]}, "
+                             f"store {out['event store'][0]}")
+    return out
+
+
+def multiframe_phase(dev, cfg_name="FULL", gate=MULTIFRAME_GATE, needed=KERNELS_A_B):
+    """The multi-frame golden gate of tests/test_golden.py on the port: the
+    fixture's full_seq chunking (0.2 s chunks every 0.04 s over 0.4 s)
+    under its auto spec, each frame's depth map scored against the analytic
+    ground truth at its pose (stereo-visible, unambiguous pixels), the
+    errors consolidated over all frames.  Returns the report."""
+    from dvs_mcemvs_torch import mapper as mappermod, pipeline
+    from dvs_mcemvs_torch.eval import dsec
+    from dvs_mcemvs_torch.ops import extract, trajectory as trajmod
+    from dvs_mcemvs_torch.utils import golden
+
+    cfg = getattr(golden, cfg_name)
+    mappers, events, trajs, scene, _ = golden.build_golden_fixture(cfg, device=dev)
+    spec = golden.production_backend_spec(events, PACKET, cfg=cfg)
+    vopts = pipeline.VotingOptions(packet_size=PACKET, backend=spec, pad_policy="bucket")
+    fopts = pipeline.FullSeqOptions(start_time=0.0, stop_time=0.4, duration=0.2,
+                                    out_skip=0.04)
+    zero_counts()
+    t0 = time.perf_counter()
+    est, gt = [], []
+    for _, ts_k, res in pipeline.run_full_seq(
+            mappers, events, trajs, fopts,
+            lambda mps, evs, trs, t: pipeline.process_1(mps, evs, trs, t, stereo_fusion=2,
+                                                        vopts=vopts)):
+        dm = mappermod.get_depth_map(mappers[0], res.fused_dsi, extract.DepthMapOptions())
+        T_w_c, _ = trajmod.pose_at(trajs[0], ts_k)
+        T_w_c1, _ = trajmod.pose_at(trajs[1], ts_k)
+        g = golden.gt_depth_at_pose(scene, T_w_c, T_w_c_right=T_w_c1)
+        est.append(np.ma.array(dm.depth.cpu().numpy(), mask=~(dm.mask.cpu().numpy() > 0)))
+        gt.append(np.ma.array(g, mask=(g < 0.05)))
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    K = np.array([[cfg.fx, 0, cfg.width / 2 - 0.5], [0, cfg.fx, cfg.height / 2 - 0.5],
+                  [0, 0, 1.0]])
+    rig = dsec.DsecEvalRig(Q=np.eye(4), T_rect0_0=np.eye(4), K_target=K,
+                           baseline=golden.BASELINE)
+    rep = dsec.evaluate_sequence(est, gt, rig)
+    out = {"spec": spec, "frames": rep["frames"],
+           "median_rel": float(rep["median_err"]) / float(np.median(scene.gt_depth)),
+           "mean_err": float(rep["mean_err"]), "bad_p": float(rep["metrics"].bad_p),
+           "seconds": seconds, "launches": {n: counts[n] for n in KERNELS_A_B}}
+    out["pass"] = bool(out["frames"] >= gate["frames"] and out["median_rel"] < gate["median_rel"]
+                       and out["mean_err"] < gate["mean_err"] and out["bad_p"] < gate["bad_p"])
+    log(f"  multi-frame golden {cfg_name}: {json.dumps(out)}; gate {json.dumps(gate)}")
+    _check_launched(f"multi-frame golden {cfg_name}", out["launches"], needed)
+    if not out["pass"]:
+        raise AssertionError(f"multi-frame golden gate failed: {out}")
+    return out
+
+
+def _plane_distance(path: str) -> float:
+    d = np.atleast_2d(np.loadtxt(path)).reshape(-1, 3)[:, 2]
+    if d.size <= 100:
+        raise AssertionError(f"{path}: {d.size} points")
+    return float(np.median(np.minimum(np.abs(d - 1.5), np.abs(d - 2.5))))
+
+
+def cli_phase(dev, workdir, needed=KERNELS_A_B):
+    """`dvs_mcemvs_torch.cli.main` in this process on the esim fixture under
+    configs/synthetic/esim_stereo.conf with the paths overridden: process
+    1, 2 and 5 single-shot, and full_seq (two chunks) with checkpoint, two
+    save workers and the event store, run twice -- the second run resumes
+    every chunk and launches nothing.  Each run exits 0 and writes the
+    artifacts tests/test_cli.py checks, its fused depth points within 0.2 m
+    of the scene's 1.5 / 2.5 m planes (median).  Returns {run: launches}."""
+    from dvs_mcemvs_torch import cli
+    from dvs_mcemvs_torch.utils import synthetic
+
+    paths = synthetic.write_fixture(os.path.join(workdir, "data"),
+                                    rig=synthetic.esim_like_rig(travel=0.4))
+    base = [f"--flagfile={os.path.join(HERE, 'configs', 'synthetic', 'esim_stereo.conf')}",
+            f"--bag_filename_left={paths['events0']}",
+            f"--bag_filename_right={paths['events1']}",
+            f"--bag_filename_pose={paths['poses']}",
+            f"--platform={'cuda' if dev.type == 'cuda' else 'cpu'}"]
+    full_seq = ["--process_method=1", "--full_seq", "--start_time_s=0", "--stop_time_s=1",
+                "--duration=0.5", "--out_skip=0.4", "--checkpoint", "--save_workers=2",
+                "--use_event_store", "--nosave_pointcloud"]
+    runs = [("process_1", "p1", ["--process_method=1", "--save_mono", "--save_dsi"]),
+            ("process_2", "p2", ["--process_method=2", "--num_intervals=2", "--save_dsi",
+                                 "--nosave_pointcloud"]),
+            ("process_5", "p5", ["--process_method=5", "--num_intervals=2", "--save_dsi"]),
+            ("full_seq", "fs", full_seq), ("full_seq resumed", "fs", full_seq)]
+    out = {}
+    for name, sub, extra in runs:
+        out_dir = os.path.join(workdir, sub)
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(base + [f"--out_path={out_dir}/"] + extra)
+        _sync(dev)
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        launches = {n: counts[n] for n in KERNELS_A_B}
+        files = sorted(os.listdir(out_dir))
+        fused = [f for f in files if f.endswith("depth_points_fused.txt")]
+        dist = [_plane_distance(os.path.join(out_dir, f)) for f in fused]
+        log(f"  cli {name}: exit {rc}, {seconds:.3f} s, launches {launches}, {len(files)} "
+            f"files, fused depth median distance to the planes "
+            f"{', '.join(f'{x:.4f}' for x in dist)} m")
+        if rc != 0 or not fused or max(dist) >= 0.2:
+            raise AssertionError(f"cli {name}: exit {rc}, plane distances {dist}")
+        need = {"events_0.png", "events_1.png", "run_flags.conf"}
+        suffixes = []
+        if sub == "p1":
+            need |= {"dsi_fused.npy", "pointcloud.pcd"}
+            suffixes = ["camera0", "camera1"]
+            dsi = np.load(os.path.join(out_dir, "dsi_fused.npy"))
+            if dsi.shape != (40, 180, 240):
+                raise AssertionError(f"cli {name}: DSI dump shape {dsi.shape}")
+        elif sub in ("p2", "p5"):
+            need |= {"dsi_fused_0_temporalfusion.npy", "dsi_fused_1_temporalfusion.npy",
+                     "dsi_stereo_temporalfusion.npy",
+                     "dsi_stereo_temporalfusion_camera_time.npy"}
+            suffixes = ["0_000", "0_001", "1_000", "1_001", "left_temporal_4",
+                        "right_temporal_4", "stereo_temporal_4", "stereo_temporal_camera_time4"]
+        else:
+            # full_seq ran from the native store the flag asks for.
+            need |= {".events_0.evs", ".events_1.evs", "checkpoint.json"}
+        missing = sorted(need - set(files)) + [
+            s_ for s_ in suffixes if not any(f.endswith(f"depth_points_{s_}.txt") for f in files)]
+        if len(fused) != (2 if sub == "fs" else 1) or missing:
+            raise AssertionError(f"cli {name}: {len(fused)} fused maps, missing {missing}")
+        if name == "full_seq resumed":
+            if any(launches.values()):
+                raise AssertionError(f"cli {name}: a resumed chunk launched kernels: {launches}")
+        else:
+            _check_launched(f"cli {name}", launches, needed)
+        out[name] = launches
+    return out
+
+
+def optional_modules() -> str:
+    """Which of the optional host packages import here."""
+    import importlib
+
+    found = []
+    for name in ("cv2", "yaml", "h5py", "scipy"):
+        try:
+            importlib.import_module(name)
+            found.append(f"{name} yes")
+        except ImportError:
+            found.append(f"{name} no")
+    return ", ".join(found)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -860,11 +1242,12 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = require_cuda()
     smi = nvidia_smi_line()
-    log(f"[1/7] device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
+    log(f"[1/8] device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)
+    log(f"  optional host modules: {optional_modules()}")
 
-    log("[2/7] build (nvcc, sm_90a, one process per source)")
+    log("[2/8] build (nvcc, sm_90a, one process per source)")
     t0 = time.perf_counter()
     _build.build("binning", "resample", "probes")
     for lib in (binning, resample, probes):
@@ -874,10 +1257,10 @@ def main() -> int:
         lines = [ln.strip() for ln in report.splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {name}: nvcc {seconds:.2f} s; " + " | ".join(lines))
 
-    log("[3/7] kernels vs plain versions at the headline shapes")
+    log("[3/8] kernels vs plain versions at the headline shapes, and past the 65,535 cap")
     results = kernel_phase(dev)
 
-    log(f"[4/7] process_1 chunk: 2 x {N_EVENTS} events, {WIDTH}x{HEIGHT}x{DIM_Z}")
+    log(f"[4/8] process_1 chunk: 2 x {N_EVENTS} events, {WIDTH}x{HEIGHT}x{DIM_Z}")
     workload = build_workload(dev)
     torch.cuda.reset_peak_memory_stats()
     launches, seconds, masses = chunk_phase(dev, workload)
@@ -886,21 +1269,33 @@ def main() -> int:
         f"[{', '.join(f'{s:.6f}' for s in seconds)}]; {2 * N_EVENTS / med / 1e6:.3f} Mev/s; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; {smi}")
 
-    log("[5/7] golden gate: BENCH16 on the literal spec; scored under i8 and the flat merge")
+    log("[5/8] golden gate: BENCH16 on the literal spec; scored under i8 and the flat merge")
     golden_phase(dev)
 
-    log(f"[6/7] spec forms on the headline chunk; {smi}")
+    log(f"[6/8] spec forms on the headline chunk; {smi}")
     forms = specs_phase(dev, workload, masses)
     launches["bin_events_int8"] = forms[I8_SPEC]["launches"]["bin_events"]
     log("  the card against the CPU on a small chunk")
     device_vs_cpu_phase(dev)
 
-    log("[7/7] dense binning path and platform probes")
+    log("[7/8] dense binning path and platform probes")
     launches["bin_events_dense"] = dense_phase(dev, workload)
-    del workload
     _, probe_launches = probe_phase()
     for name in ("smem_copy", "block_step", "hbm_stream", "dyn_slice"):
         launches[name] = probe_launches[name]
+
+    log(f"[8/8] pipelines: process_2/5 on the headline chunk; {smi}")
+    t8 = time.perf_counter()
+    temporal_phase(dev, workload, masses, smi=smi)
+    del workload
+    log(f"  full_seq: 2 x {FULL_SEQ_EVENTS} events, RAM and the native event store")
+    full_seq_phase(dev, smi=smi)
+    log("  the multi-frame golden gate (FULL fixture, full_seq chunking)")
+    multiframe_phase(dev)
+    log("  the CLI (dvs_mcemvs_torch.cli.main) on the esim fixture")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as workdir:
+        cli_phase(dev, workdir)
+    log(f"  phase 8 in {time.perf_counter() - t8:.1f} s")
 
     binning_src = "dvs_mcemvs_torch/csrc/binning.cu"
     resample_src = "dvs_mcemvs_torch/csrc/resample.cu"

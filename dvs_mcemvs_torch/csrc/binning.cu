@@ -82,6 +82,7 @@ constexpr int kStageBytes = kStages * 3 * kChunk * (int)sizeof(float);
 // portable cluster.
 constexpr int kMaxSmem = 232448;
 constexpr int kMaxCluster = 8;
+constexpr int64_t kMaxGridX = 2147483647;  // blocks on grid x
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -155,24 +156,28 @@ __host__ __device__ constexpr int round16(int bytes) {
   return (bytes + 15) & ~15;
 }
 
-// Grid (C * bands, G); clusters of (C, 1, 1).  The cluster of band b holds
-// rows [b*C*R, (b+1)*C*R) of group blockIdx.y; its block of rank r holds
-// rows [b*C*R + r*R, ... + R), cut at hs, in shared memory.
+// Grid (G * C * bands, 1, 1); clusters of (C, 1, 1).  Block x belongs to
+// group g = x / (C * bands), and its cluster to band b = (x mod C * bands)
+// / C, so no cluster spans two groups.  The cluster of band b holds rows
+// [b*C*R, (b+1)*C*R) of group g; its block of rank r holds rows
+// [b*C*R + r*R, ... + R), cut at hs, in shared memory.  Groups on grid x
+// take any G up to 2^31 - 1 blocks in all (grid y stops at 65,535).
 template <typename Taps, typename Acc, typename Out>
 __global__ void __launch_bounds__(kThreads, 1)
     bin_events_kernel(const float* __restrict__ hx,
                       const float* __restrict__ hy,
                       const float* __restrict__ w, Out* __restrict__ out,
-                      int E, int hs, int ws, int rows) {
+                      int E, int hs, int ws, int rows, int bands) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int band_lo = (int)(blockIdx.x - rank) * rows;
+  const int per_group = C * bands;
+  const int64_t g = blockIdx.x / per_group;
+  const int band_lo = (int)(blockIdx.x - g * per_group - rank) * rows;
   const int band_hi = min(band_lo + C * rows, hs);
   const int row_lo = min(band_lo + rank * rows, hs);
   const int row_hi = min(row_lo + rows, hs);
-  const int64_t g = blockIdx.y;
   const int t = threadIdx.x;
   Acc* acc = reinterpret_cast<Acc*>(smem);
   const int acc_bytes = round16(rows * ws * (int)sizeof(Acc));
@@ -278,7 +283,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 cudaLaunchConfig_t config(int G, int cluster, int bands, int smem,
                           cudaStream_t s, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(cluster * bands), (unsigned)G, 1);
+  cfg.gridDim = dim3((unsigned)G * (unsigned)(cluster * bands), 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = s;
@@ -305,8 +310,9 @@ cudaError_t opt_in() {
 template <typename Acc>
 bool valid(int G, int E, int hs, int ws, int rows, int cluster, int bands,
            int smem) {
-  if (G < 1 || G > 65535 || E < 1 || hs < 1 || ws < 1 || rows < 1) return false;
+  if (G < 1 || E < 1 || hs < 1 || ws < 1 || rows < 1) return false;
   if (cluster < 1 || cluster > kMaxCluster || bands < 1) return false;
+  if ((int64_t)G * cluster * bands > kMaxGridX) return false;
   if ((int64_t)rows * cluster * bands < hs) return false;
   const int64_t need = (((int64_t)rows * ws * sizeof(Acc) + 15) & ~15) + kStageBytes;
   return need <= smem && smem <= kMaxSmem;
@@ -339,7 +345,7 @@ struct Launch {
     const cudaLaunchConfig_t cfg = config(G, cluster, bands, smem, s, &attr);
     const cudaError_t e = cudaLaunchKernelEx(
         &cfg, bin_events_kernel<Taps, Acc, Out>, hx, hy, w,
-        static_cast<Out*>(out), E, hs, ws, rows);
+        static_cast<Out*>(out), E, hs, ws, rows, bands);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
   }

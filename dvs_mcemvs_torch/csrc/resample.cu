@@ -466,7 +466,7 @@ cudaError_t launch(const void* src, const int* src_idx, const float* sy,
                                 (int)cudaSharedmemCarveoutMaxShared);
   }();
   if (opt_in != cudaSuccess) return opt_in;
-  const dim3 grid(J, (Ho + TV - 1) / TV, (Wo + TU - 1) / TU);
+  const dim3 grid((unsigned)J, (Ho + TV - 1) / TV, (Wo + TU - 1) / TU);
   resample_kernel<Tin, Tout><<<grid, NTHREADS, smem, s>>>(
       static_cast<const Tin*>(src), src_idx, sy, ty, sx, tx, out_idx,
       static_cast<Tout*>(out), K, hs, ws, Ho, Wo);
@@ -477,8 +477,8 @@ cudaError_t launch(const void* src, const int* src_idx, const float* sy,
 
 // src: (n_src, hs, ws) f32 or bf16 (src_bf16); src_idx, sy, ty, sx, tx:
 // (J, K); out_idx: (J,) distinct output planes; out: (n_out, Ho, Wo) f32 or
-// bf16 (out_bf16).  J <= 65535.  Launches on `stream`; returns the launch's
-// cudaError_t.
+// bf16 (out_bf16).  J sits on grid x and J * K <= 2^31 - 1 (the maps'
+// index).  Launches on `stream`; returns the launch's cudaError_t.
 extern "C" int banded_resample(const void* src, int src_bf16,
                                const int* src_idx, const float* sy,
                                const float* ty, const float* sx,

@@ -44,6 +44,8 @@ CLUSTER = 1
 # An event adds at most 127 * 127 to an int8-mode bin, so unsigned 32-bit
 # sums are exact up to this many events a group.
 U32_MAX_EVENTS = (2**32 - 1) // (127 * 127)
+# Blocks a launch may hold on grid x, where the groups lie (csrc/binning.cu).
+MAX_GRID_X = 2**31 - 1
 _ACC_BYTES = {"f32": 4, "u32": 4, "u64": 8}
 _ACC_CODE = {"f32": 0, "u32": 1, "u64": 2}
 
@@ -206,8 +208,9 @@ def launch(hx: torch.Tensor, hy: torch.Tensor, w: torch.Tensor, p: Plan,
     int8 mode is `p.acc` u32 or u64."""
     G, E = hx.shape
     bf16_out = out_dtype == torch.bfloat16
-    if G > 65535:
-        raise ValueError(f"at most 65535 groups a launch, got {G}")
+    if G * p.cluster * p.bands > MAX_GRID_X:
+        raise ValueError(f"{G} groups of {p.cluster * p.bands} blocks exceed the "
+                         f"grid's {MAX_GRID_X} blocks")
     if max_active_clusters(p, bf16_out) < 1:
         raise RuntimeError(f"bin_events: no cluster of {p.cluster} blocks with "
                            f"{p.smem_bytes} bytes of shared memory fits on the card")

@@ -30,7 +30,9 @@ import torch
 from . import _build
 
 _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
-_MAX_ITEMS = 65535   # items per call the kernel takes (csrc/resample.cu)
+# Items a call (grid x of csrc/resample.cu) times sources an item: the
+# kernel's 32-bit index into the maps.
+_MAX_ITEM_SOURCES = 2**31 - 1
 _REFERENCE_BYTES = 2**28  # working-set bound of one batch of the plain version
 
 
@@ -123,8 +125,9 @@ def _run(src, src_idx, sy, ty, sx, tx, out_idx, *, n_out, out_h, out_w,
             out_h=out_h, out_w=out_w, out_dtype=out_dtype)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if J > _MAX_ITEMS:
-        raise ValueError(f"{J} items exceed the grid limit of {_MAX_ITEMS}")
+    if J * K > _MAX_ITEM_SOURCES:
+        raise ValueError(f"{J} items of {K} sources exceed the kernel's "
+                         f"{_MAX_ITEM_SOURCES}")
     bf16_out = out_dtype == torch.bfloat16
     dtype = torch.bfloat16 if bf16_out else torch.float32
     covered = len(np.unique(out_idx)) == n_out

@@ -2,7 +2,8 @@
 
 Port of dvs_mcemvs_tpu/mapper.py: an immutable per-camera setup (virtual
 camera, rectification LUT, depth planes) whose `evaluate_dsi` turns a chunk
-of events into a fresh (Z, H, W) DSI on the device of the trajectory.
+of events into a fresh (Z, H, W) DSI on the device of the trajectory, and
+`get_pointcloud`, which turns a depth map into a filtered point cloud.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .ops import camera as camops, extract, trajectory as trajmod, voting
+from .ops import camera as camops, extract, pointcloud as pcops, trajectory as trajmod, voting
 from .ops.camera import PinholeCamera, rectify_lut, virtual_camera
 from .ops.depth_vector import DepthVector, LINEAR
 from .ops.se3 import SE3
@@ -42,6 +43,16 @@ class Events(NamedTuple):
     @property
     def num(self) -> int:
         return int(self.x.shape[0])
+
+    def slice(self, lo: int, hi: int) -> "Events":
+        p = None if self.p is None else self.p[lo:hi]
+        return Events(self.x[lo:hi], self.y[lo:hi], self.t[lo:hi], p)
+
+    def time_window(self, t0: float, t1: float) -> "Events":
+        """Events with t in [t0, t1], by binary search on the host times."""
+        lo = int(np.searchsorted(self.t, t0, side="left"))
+        hi = int(np.searchsorted(self.t, t1, side="right"))
+        return self.slice(lo, hi)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,3 +173,20 @@ def get_depth_map(mapper: Mapper, dsi: torch.Tensor,
                   options: extract.DepthMapOptions) -> extract.DepthMapResult:
     """getDepthMapFromDSI on this mapper's depth planes."""
     return extract.get_depth_map_from_dsi(dsi, mapper.depth_vec, options)
+
+
+@dataclasses.dataclass(frozen=True)
+class PointCloudOptions:
+    """Mirrors EMVS::OptionsPointCloud."""
+
+    radius_search: float = 0.05
+    min_num_neighbors: int = 3
+
+
+def get_pointcloud(mapper: Mapper, depth, mask, options: PointCloudOptions,
+                   backend: str = "kdtree") -> pcops.PointCloud:
+    """getPointcloud: unproject the masked pixels of a depth map (tensors
+    or host arrays) and drop radius outliers."""
+    pc = pcops.depth_map_to_pointcloud(depth, mask, mapper.vcam)
+    return pcops.radius_outlier_removal(
+        pc, options.radius_search, options.min_num_neighbors, backend=backend)

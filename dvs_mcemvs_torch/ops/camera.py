@@ -57,6 +57,12 @@ class PinholeCamera:
             return np.eye(3)
         return np.asarray(self.R, dtype=np.float64).reshape(3, 3)
 
+    def with_projection(self, other: "PinholeCamera") -> "PinholeCamera":
+        """Adopt another camera's rectified projection (shared-P convention)."""
+        P = other.P
+        return dataclasses.replace(
+            self, P_fx=P[0, 0], P_fy=P[1, 1], P_cx=P[0, 2], P_cy=P[1, 2])
+
 
 def virtual_camera(
     dim_x: int, dim_y: int, fov_deg: float, ref_cam: PinholeCamera

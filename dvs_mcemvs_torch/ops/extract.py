@@ -1,21 +1,24 @@
 """Depth-map extraction from a DSI: collapse, threshold, median, border.
 
-Port of the device part of dvs_mcemvs_tpu/ops/extract.py (the reference's
-getDepthMapFromDSI): confidence normalization, the adaptive Gaussian
-threshold, the masked Huang median as a rank binary search, border removal
-and index-to-depth.
+Port of dvs_mcemvs_tpu/ops/extract.py (the reference's getDepthMapFromDSI):
+confidence normalization, the adaptive Gaussian threshold, the masked Huang
+median as a rank binary search, border removal and index-to-depth on the
+device; Telea inpainting (`densify_host`) on the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+import logging
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import grid as gridops
 from .depth_vector import DepthVector
+
+log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,3 +148,39 @@ def get_depth_map_from_dsi(dsi: torch.Tensor, depth_vec: DepthVector,
     """Collapse a (Z, H, W) DSI and run the extraction chain."""
     confidence, depth_indices = gridops.collapse(dsi, options.collapse_method)
     return extract_from_collapsed(confidence, depth_indices, depth_vec, options)
+
+
+def densify_host(result: DepthMapResult, depth_vec: DepthVector) -> np.ndarray:
+    """Telea inpainting of the filtered depth indices on the host (OpenCV),
+    off the hot path; returns dense metric depth as a host array.
+
+    Up to 256 planes the indices are inpainted as uint8, as the reference
+    does; above, as float32 rounded back to indices.  Without OpenCV the
+    indices are used as they are (no inpainting), with a warning.
+    """
+    idx_raw = result.depth_indices.cpu().numpy()
+    mask = result.mask.cpu().numpy().astype(np.uint8)
+    depths = depth_vec.depths()
+    n_planes = len(depths)
+    try:
+        import cv2
+    except ImportError:
+        log.warning("OpenCV is not installed: the dense depth map is not inpainted")
+        return depths[np.clip(idx_raw, 0, n_planes - 1)]
+    inpaint_mask = (1 - mask).astype(np.uint8)
+    if n_planes <= 256:
+        inpainted = cv2.inpaint(idx_raw.astype(np.uint8), inpaint_mask, 3,
+                                cv2.INPAINT_TELEA)
+    else:
+        inpainted = np.rint(cv2.inpaint(idx_raw.astype(np.float32),
+                                        inpaint_mask, 3, cv2.INPAINT_TELEA))
+    return depths[np.clip(inpainted.astype(np.int64), 0, n_planes - 1)]
+
+
+def confidence_range_stats(confidence: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Min and max over the nonzero confidences (the save_conf_stats probe)."""
+    nz = confidence > 0
+    big = torch.amax(confidence)
+    cmin = torch.amin(torch.where(nz, confidence, big))
+    cmax = torch.amax(torch.where(nz, confidence, torch.zeros_like(confidence)))
+    return cmin, cmax

@@ -1,8 +1,8 @@
 """DSI voxel-grid operations: fusion, Z-collapse and 2D filtering.
 
-Port of the parts of dvs_mcemvs_tpu/ops/grid.py that the process_1 chunk
-runs.  A DSI is a (Z, H, W) float32 tensor; the two-grid fusion ops keep the
-reference's epsilon semantics.
+Port of the parts of dvs_mcemvs_tpu/ops/grid.py that process_1, process_2
+and process_5 run.  A DSI is a (Z, H, W) float32 tensor; the two-grid
+fusion ops keep the reference's epsilon semantics.
 """
 
 from __future__ import annotations
@@ -103,10 +103,40 @@ def collapse_max(dsi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.amax(dsi, dim=0), torch.argmax(dsi, dim=0).to(torch.int32)
 
 
+# Streaming accumulators of temporal fusion (process_2/5): the harmonic mean
+# sums inverses, the arithmetic mean sums values; each is normalised once by
+# the count of sub-intervals that voted.  The sums run in place, with the
+# JAX package's f32 arithmetic and order.
+
+
+def fuse_add_(acc, g):
+    """acc += g: the AM running accumulator."""
+    return acc.add_(g)
+
+
+def inverse(g, eps=1e-2):
+    """1/(eps + g): one sub-interval's term of the HM accumulator."""
+    return 1.0 / (eps + g)
+
+
+def add_inverse_(acc, g, eps=1e-2):
+    """acc += 1/(eps + g): the HM running accumulator."""
+    return acc.add_(inverse(g, eps))
+
+
+def hm_from_sum_of_inv(acc, n: int):
+    return float(n) / acc
+
+
+def am_from_sum(acc, n: int):
+    return acc / float(n)
+
+
 def collapse(dsi: torch.Tensor, method: int = -1):
     """Z-collapse by `collapse_method`; only -1 (argmax of votes) is ported."""
     if method != -1:
-        raise ValueError(f"collapse method {method} is not ported (only -1)")
+        raise ValueError(f"collapse method {method} is not ported (only -1; the focus "
+                         "collapses 0-4 are ROADMAP Queue 1 item 2)")
     return collapse_max(dsi)
 
 

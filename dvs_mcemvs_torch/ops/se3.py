@@ -76,6 +76,38 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> wxyz quaternion, branch-free
+    (Shepperd): the best-conditioned of four constructions, w >= 0."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    piv = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22,
+                       1.0 - m00 - m11 + m22], dim=-1)
+    piv = torch.sqrt(torch.clamp(piv, min=1e-12)) * 0.5
+    case = torch.argmax(piv, dim=-1)
+    p0, p1, p2, p3 = piv.unbind(-1)
+    cands = torch.stack([
+        torch.stack([p0, (m21 - m12) / (4 * p0), (m02 - m20) / (4 * p0),
+                     (m10 - m01) / (4 * p0)], dim=-1),
+        torch.stack([(m21 - m12) / (4 * p1), p1, (m01 + m10) / (4 * p1),
+                     (m02 + m20) / (4 * p1)], dim=-1),
+        torch.stack([(m02 - m20) / (4 * p2), (m01 + m10) / (4 * p2), p2,
+                     (m12 + m21) / (4 * p2)], dim=-1),
+        torch.stack([(m10 - m01) / (4 * p3), (m02 + m20) / (4 * p3),
+                     (m12 + m21) / (4 * p3), p3], dim=-1),
+    ], dim=-2)
+    q = torch.take_along_dim(cands, case[..., None, None], dim=-2)[..., 0, :]
+    q = torch.where(q[..., :1] < 0, -q, q)
+    return quat_normalize(q)
+
+
+def from_matrix(m: torch.Tensor) -> SE3:
+    """SE3 of a (..., 4, 4) homogeneous matrix."""
+    return SE3(matrix_to_quat(m[..., :3, :3]), m[..., :3, 3])
+
+
 def compose(a: SE3, b: SE3) -> SE3:
     """a * b  (apply b first)."""
     return SE3(quat_normalize(quat_mul(a.q, b.q)), quat_rotate(a.q, b.t) + a.t)

@@ -46,6 +46,13 @@ def from_arrays(ts, qs, trans, device=None) -> Trajectory:
     return Trajectory(ts[order], SE3(q, t))
 
 
+def from_matrices(ts, mats, device=None) -> Trajectory:
+    """Build from (N, 4, 4) homogeneous matrices; `device` as in from_arrays."""
+    mats = torch.as_tensor(np.asarray(mats, np.float32))
+    return from_arrays(ts, se3.matrix_to_quat(mats[..., :3, :3]).numpy(),
+                       mats[..., :3, 3].numpy(), device=device)
+
+
 def pose_at(traj: Trajectory, t) -> Tuple[SE3, torch.Tensor]:
     """Interpolated pose at query times t (...,).
 

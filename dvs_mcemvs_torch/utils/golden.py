@@ -151,6 +151,78 @@ def make_golden_scene(cfg: GoldenConfig = FULL, seed: int = SEED) -> GoldenScene
                        stripe_depths=STRIPE_DEPTHS, cfg=cfg)
 
 
+def gt_depth_at_pose(scene: GoldenScene, T_w_c: SE3,
+                     min_t: float = 0.5,
+                     T_w_c_right: Optional[SE3] = None) -> np.ndarray:
+    """Analytic GT depth for the left camera at an ARBITRARY pose — the
+    multi-frame extension of `GoldenScene.gt_depth` (which is only valid at
+    the reference view itself).
+
+    Per pixel, rays are traced against the stripe planes (z = const in the
+    RV frame over the stripe's padded column extent, `make_golden_scene`);
+    the depth is the nearest hit.  Pixels where a SECOND stripe also hits
+    (parallax makes padded stripe extents overlap away from the RV) are
+    marked 0 = invalid: the event simulation renders both surfaces without
+    occlusion, so no single depth is "true" there — the DSEC evaluator
+    masks GT below 0.05 m (scripts/evaluate_dsec.py).  The poses are the
+    port's SE3 on any device; the trace runs on the host in float64.
+
+    `T_w_c_right` additionally masks pixels whose surface point falls
+    OUTSIDE the right camera's frustum: stereo fusion has no vote support
+    there (at z=5 m the rig's 0.6 m baseline is a 67 px disparity, so the
+    left image's left edge is stereo-blind), and the real-data protocol
+    this stands in for never evaluates such pixels because LiDAR GT and
+    event texture coexist only in the stereo-visible field.
+    """
+    cam = dsec_like_camera(scene.cfg)
+    T_w_rv = SE3(scene.T_w_rv.q.to(T_w_c.q.device), scene.T_w_rv.t.to(T_w_c.q.device))
+    T_rv_c = se3.compose(se3.inverse(T_w_rv), T_w_c)
+    R = se3.quat_to_matrix(T_rv_c.q).cpu().numpy().astype(np.float64)
+    o = T_rv_c.t.cpu().numpy().astype(np.float64)
+
+    us, vs = np.meshgrid(np.arange(cam.width, dtype=np.float64),
+                         np.arange(cam.height, dtype=np.float64))
+    d_cam = np.stack([(us - cam.cx) / cam.fx, (vs - cam.cy) / cam.fy,
+                      np.ones_like(us)], axis=-1)        # (H, W, 3)
+    d_rv = d_cam @ R.T
+
+    S = len(scene.stripe_depths)
+    stripe_w = scene.cfg.width / S
+    pad = scene.cfg.pad_px
+    best = np.full((cam.height, cam.width), np.inf)
+    hits = np.zeros((cam.height, cam.width), np.int32)
+    for s, z_s in enumerate(scene.stripe_depths):
+        lo = s * stripe_w - (pad if s == 0 else 2.0)
+        hi = (s + 1) * stripe_w + (pad if s == S - 1 else 2.0)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            tt = (z_s - o[2]) / d_rv[..., 2]
+            X = o[None, None, :] + tt[..., None] * d_rv
+            u_rv = cam.fx * X[..., 0] / z_s + cam.cx
+            v_rv = cam.fy * X[..., 1] / z_s + cam.cy
+        ok = ((tt > min_t) & (u_rv >= lo) & (u_rv <= hi)
+              & (v_rv >= -pad) & (v_rv <= scene.cfg.height + pad))
+        hits += ok.astype(np.int32)
+        best = np.where(ok & (tt < best), tt, best)
+    gt = np.where((hits == 1) & np.isfinite(best), best, 0.0)
+
+    if T_w_c_right is not None:
+        # Surface point in RV coords -> right camera coords; mask pixels
+        # the right camera cannot see (no stereo vote support).
+        T_cr_rv = se3.compose(se3.inverse(T_w_c_right), T_w_rv)
+        Rr = se3.quat_to_matrix(T_cr_rv.q).cpu().numpy().astype(np.float64)
+        tr = T_cr_rv.t.cpu().numpy().astype(np.float64)
+        tt = np.where(gt > 0, gt, 1.0)
+        X_rv = o[None, None, :] + tt[..., None] * d_rv
+        X_r = X_rv @ Rr.T + tr[None, None, :]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            u_r = cam.fx * X_r[..., 0] / X_r[..., 2] + cam.cx
+            v_r = cam.fy * X_r[..., 1] / X_r[..., 2] + cam.cy
+        vis = ((X_r[..., 2] > min_t) & (u_r >= 0) & (u_r <= cam.width - 1)
+               & (v_r >= 0) & (v_r <= cam.height - 1))
+        gt = np.where(vis, gt, 0.0)
+    return gt.astype(np.float32)
+
+
 def simulate_events_se3(cam: PinholeCamera, traj: trajmod.Trajectory,
                         pts_w: np.ndarray, n_samples: int,
                         t_range: Tuple[float, float], rng: np.random.Generator,

@@ -3,7 +3,8 @@
 Port of dvs_mcemvs_tpu/utils/synthetic.py (pure numpy, float64, so the two
 packages generate identical events from one seed): a rigid two-plane point
 scene observed by a rig translating along +x produces one event per
-(point, sample time) visibility.
+(point, sample time) visibility.  `write_fixture` writes such a rig as a
+dataset the CLI reads.
 """
 
 from __future__ import annotations
@@ -96,3 +97,53 @@ def ground_truth_depth(
     pixel's ray at the recovered depth."""
     x_w = (xs - vcam.cx) / vcam.fx * depth + rv_x
     return np.where(x_w < rig.split_x, rig.plane_depths[0], rig.plane_depths[1])
+
+
+def write_fixture(
+    out_dir: str, rig: Optional[SyntheticRig] = None, n_pts: int = 3000,
+    n_samples: int = 30, seed: int = 7, n_cameras: int = 2,
+) -> dict:
+    """Write a self-contained CLI-drivable dataset: events npz per camera +
+    TUM pose file.  Pairs with calib_type='esim' (stereo); with n_cameras=3
+    it also writes a 3-camera 'cameras:' YAML (pairs with calib_type='yaml',
+    key 'calib') modelling an inline evimo2-style rig."""
+    import os
+
+    from ..io import events as eventsmod
+
+    rig = rig or esim_like_rig()
+    rng = np.random.default_rng(seed)
+    pts = make_scene(rig, rng)
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {}
+    for i in range(n_cameras):
+        ev = simulate_events(rig, pts, i, n_samples=n_samples, rng=rng)
+        paths[f"events{i}"] = os.path.join(out_dir, f"events_{i}.npz")
+        eventsmod.write_events_npz(paths[f"events{i}"], ev)
+    if n_cameras >= 3:
+        paths["calib"] = os.path.join(out_dir, "rig.yaml")
+        with open(paths["calib"], "w") as f:
+            f.write("cameras:\n")
+            for i in range(n_cameras):
+                T = np.eye(4)
+                T[0, 3] = rig.baseline * i  # T_B_C: cam i in the body frame
+                row = ", ".join(f"{v}" for v in T.reshape(-1))
+                f.write(
+                    f"  - camera:\n"
+                    f"      image_width: {rig.cam.width}\n"
+                    f"      image_height: {rig.cam.height}\n"
+                    f"      intrinsics:\n"
+                    f"        data: [{rig.cam.fx}, {rig.cam.fy}, "
+                    f"{rig.cam.cx}, {rig.cam.cy}]\n"
+                    f"    T_B_C:\n"
+                    f"      data: [{row}]\n")
+    ts, q, p = rig_poses(rig)
+    pose_path = os.path.join(out_dir, "poses_tum.txt")
+    with open(pose_path, "w") as f:
+        f.write("# t x y z qx qy qz qw\n")
+        for k in range(len(ts)):
+            f.write(f"{ts[k]} {p[k,0]} {p[k,1]} {p[k,2]} "
+                    f"{q[k,1]} {q[k,2]} {q[k,3]} {q[k,0]}\n")
+    paths["poses"] = pose_path
+    paths["rig"] = rig
+    return paths

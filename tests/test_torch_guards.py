@@ -26,6 +26,13 @@ SLICE_MODULES = [
     "dvs_mcemvs_torch.kernels._build", "dvs_mcemvs_torch.kernels.binning",
     "dvs_mcemvs_torch.kernels.resample", "dvs_mcemvs_torch.kernels.probes",
     "dvs_mcemvs_torch.utils.synthetic", "dvs_mcemvs_torch.utils.golden",
+    "dvs_mcemvs_torch.ops.pointcloud", "dvs_mcemvs_torch.config",
+    "dvs_mcemvs_torch.checkpoint", "dvs_mcemvs_torch.io", "dvs_mcemvs_torch.io.calib",
+    "dvs_mcemvs_torch.io.events", "dvs_mcemvs_torch.io.poses",
+    "dvs_mcemvs_torch.io.outputs", "dvs_mcemvs_torch.io.evstore",
+    "dvs_mcemvs_torch.utils.writers", "dvs_mcemvs_torch.eval",
+    "dvs_mcemvs_torch.eval.metrics", "dvs_mcemvs_torch.eval.dsec", "dvs_mcemvs_torch.cli",
+    "dvs_mcemvs_torch.ops", "dvs_mcemvs_torch.kernels", "dvs_mcemvs_torch.utils",
 ]
 
 
@@ -45,6 +52,32 @@ def test_port_never_imports_jax():
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_clean_env(),
                    check=True, timeout=120)
+
+
+def test_slice_modules_cover_the_package():
+    """Every module file of the port is in SLICE_MODULES, so the guard
+    above holds each of them."""
+    root = os.path.join(REPO, "dvs_mcemvs_torch")
+    found = set()
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(d, f), REPO)[:-3].replace(os.sep, ".")
+                found.add(rel[:-len(".__init__")] if rel.endswith(".__init__") else rel)
+    assert found <= set(SLICE_MODULES), sorted(found - set(SLICE_MODULES))
+
+
+@pytest.mark.parametrize("platform", ["", "cuda"])
+def test_cli_needs_the_card(monkeypatch, tmp_path, platform):
+    """`cli.main` with --platform= (or cuda) and no card raises: the CLI
+    never falls back to the CPU unless --platform=cpu asks for it."""
+    from dvs_mcemvs_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main([f"--platform={platform}", "--calib_type=esim",
+                  f"--out_path={tmp_path}/", "--bag_filename_left=e0.npz",
+                  "--bag_filename_right=e1.npz", "--bag_filename_pose=p.txt"])
 
 
 def test_cpu_calls_launch_no_kernel():
@@ -97,7 +130,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     cpu = torch.device("cpu")
     res = chip_smoke.kernel_phase(cpu, G=4, E=1024, hs=64, ws=128, hs_dense=56, Ho=48,
                                   Wo=64, Z=12, S=4, K_sweep=2, K_wide=32, probe_h=176,
-                                  probe_w=128, probe_g=4, iters=1)
+                                  probe_w=128, probe_g=4, iters=1, cap=(70_000, 4, 4, 8, 2))
     assert set(res) == {"bin_events", "bin_events_int8", "bin_events_dense",
                         "banded_resample_sum", "banded_resample_fanin", "smem_copy",
                         "block_step", "hbm_stream", "dyn_slice"}
@@ -122,6 +155,29 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     assert chip_smoke.dense_phase(cpu, workload, hs=136) == 0
     with pytest.raises(RuntimeError, match="CUDA"):
         chip_smoke.probe_phase(min_time=0.01)
+
+
+def test_chip_smoke_pipelines_rehearse_on_cpu(monkeypatch):
+    """Phase 8's process_2/5 and full_seq steps at a tiny size on the CPU:
+    the temporal vote mass is additive, RAM and store give the same chunks,
+    and each step refuses a run that launched no kernel."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    cpu = torch.device("cpu")
+    size = dict(width=96, height=64, dim_z=20, n_pts=2000)
+    workload = chip_smoke.build_workload(cpu, n_events=16384, **size)
+    headline, _ = chip_smoke.run_chunk(workload, "hist:g4,seg4,bf,pl")
+    masses = chip_smoke.check_dsis(headline, workload, "headline")
+    out = chip_smoke.temporal_phase(cpu, workload, masses, spec="hist:g4,seg4,bf,pl",
+                                    runs=1, needed=())
+    assert len(out) == 4
+    with pytest.raises(AssertionError, match="not launched"):
+        chip_smoke.temporal_phase(cpu, workload, masses, spec="hist:g4,seg4,bf,pl", runs=1)
+    seq = chip_smoke.full_seq_phase(cpu, n_events=32768, runs=1, needed=(), **size)
+    assert seq["RAM"][0] == seq["event store"][0] and len(seq["RAM"][0]) == 9
+    with pytest.raises(AssertionError, match="not launched"):
+        chip_smoke.full_seq_phase(cpu, n_events=32768, runs=1, **size)
 
 
 @pytest.mark.parametrize("entry", ["from_arrays", "golden_trajectories",

@@ -273,3 +273,28 @@ def test_binning_bands_sum_to_whole(int8):
             assert torch.equal(parts, whole)
         else:
             torch.testing.assert_close(parts, whole, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("wrapper", ["bin_events", "banded_resample_sum"])
+def test_wrappers_take_more_than_65535_items(wrapper):
+    """Neither wrapper caps a call at 65,535 groups or items (the kernels
+    put them on grid x): 70,000 groups of 4 events on a 4 x 8 grid, then
+    70,000 identity resamples of those planes, against exact sums.  Events
+    on bin centres make every tap 0 or 1, so the sums are counts."""
+    rng = np.random.default_rng(65536)
+    G, E, hs, ws = 70_000, 4, 4, 8
+    hx = rng.integers(0, ws, (G, E)).astype(np.float32)
+    hy = rng.integers(0, hs, (G, E)).astype(np.float32)
+    w = (rng.uniform(size=(G, E)) > 0.25).astype(np.float32)
+    want = np.zeros((G, hs, ws), np.float32)
+    np.add.at(want, (np.repeat(np.arange(G), E), hy.reshape(-1).astype(int),
+                     hx.reshape(-1).astype(int)), w.reshape(-1))
+    hist = tbin.bin_events(torch.as_tensor(hx), torch.as_tensor(hy), torch.as_tensor(w),
+                           hs=hs, ws=ws, binary_w=True)
+    if wrapper == "bin_events":
+        np.testing.assert_array_equal(to_np(hist), want)
+        return
+    ones, zeros = torch.ones(G, 1), torch.zeros(G, 1)
+    out = tres.banded_resample_sum(hist, ones, zeros, ones, zeros, out_h=hs, out_w=ws,
+                                   blocked=True)
+    np.testing.assert_array_equal(to_np(out), want)

@@ -2,8 +2,9 @@
 """Quickest proof that the PyTorch port runs on an NVIDIA GPU: builds the
 CUDA kernels, checks each against its plain PyTorch version at the main
 path's shapes, drives the two-camera process_1 chunk at the headline size
-through the kernels under every histogram spec form, and gates the BENCH16
-golden fixture.
+through the kernels under every voting backend and histogram spec form,
+gates the BENCH16 golden fixture, and runs the CLI on presets from a ROS1
+bag.
 
     python3 chip_smoke.py        # needs one CUDA device and nvcc
 
@@ -17,16 +18,22 @@ Phases (each raises on failure, so the script exits non-zero):
                 plans, cluster occupancy and ptxas report), both resample
                 call forms and the edges of the resample kernel's two paths
                 (scale 0.3, bands off the source edge, a ragged output), the
-                four platform probes;
+                call forms of the one-hot engine's specs (binning on the
+                unaligned 544-row grid and on 1088 x 1792; kernel B's sweep
+                from 544-row sources, the ss2 flat merge, a sweep into
+                260 x 346), the four platform probes;
   4. chunk   -- process_1 + get_depth_map on 2 x 1 Mi events, 640x480x100,
                 with the auto-selected spec; every kernel must have run;
   5. golden  -- BENCH16 (2 x 262,144 events) on the literal spec, scored
                 against tests/golden/golden_dsec_g16.npz with BUDGET_BENCH16;
                 also scored (not gated) under int8 binning and the flat merge;
-  6. specs   -- the headline chunk once under each further spec form, with
-                the kernels each must reach, its vote mass against the
-                headline spec's, seconds per chunk and peak memory; then a
-                small chunk on the card against the same chunk on the CPU;
+  6. specs   -- the headline chunk once under each further spec form (the
+                one-hot engine's `hist:g16,ss2,seg10`, `hist` and
+                `hist_exact`, and `sort`, too), with the kernels each must
+                reach, its vote mass against the headline spec's, seconds
+                per chunk and peak memory; `sort` against the exact scatter;
+                then a small chunk on the card against the same chunk on the
+                CPU;
   7. paths   -- the dense binning form (a grid whose height is not a
                 multiple of 64) and the platform probes (scripts/probe_gpu.py),
                 each with the launch counts of its own run;
@@ -37,7 +44,17 @@ Phases (each raises on failure, so the script exits non-zero):
                 gate on the FULL fixture, and the CLI itself
                 (`dvs_mcemvs_torch.cli.main` on the esim fixture: process
                 1, 2, 5 and full_seq with checkpoint resume); each step with
-                its launches per kernel, seconds, Mev/s and peak memory.
+                its launches per kernel, seconds, Mev/s and peak memory;
+  9. presets -- two MVSEC presets (process_1 and process_2, full_seq) through
+                the CLI on a ROS1 bag of the synthetic rig at 346 x 260, 2 Mi
+                events a camera over 2 s, read whole into RAM (bag read rate,
+                chunks/s, launches, peak memory, depth on the planes); the
+                focus collapses 0-4
+                on the headline fused DSI, the card against the CPU; one
+                process_1 chunk of phase 4's events at 300 planes (the
+                sort-path median) against the CPU's extraction.
+Each phase logs its seconds; the line before the two result lines gives
+the total and each phase's share.
 Phase 3 also holds kernels A and B against their plain versions past the
 65,535 groups or items a launch of the earlier kernels took.  Each path's
 launch counts are read from a run that starts with every count at zero.
@@ -76,13 +93,23 @@ SPEC_FORMS = {
     "hist:g16,seg16,bf,f32,pl": ("bin_events", "banded_resample_sum", "banded_resample_fanin"),
     "hist:g16,seg16,bf,nocorr,px96,py16,pl": ("bin_events", "banded_resample_sum",
                                               "banded_resample_fanin"),
+    # The one-hot engine's specs (no "pl"), on the same kernels: the JAX
+    # package's off-TPU auto spec for this chunk, its two named histogram
+    # backends, and the sort + segment-sum form of the exact scatter.
+    "hist:g16,ss2,seg10": ("bin_events", "banded_resample_sum"),
+    "hist": ("bin_events", "banded_resample_sum"),
+    "hist_exact": ("bin_events", "banded_resample_sum"),
+    "sort": (),
 }
 I8_SPEC, FLAT_SPEC = "hist:g16,seg16,bf,i8,pl", "hist:g16,seg16,pl"
 # A spec form's per-camera vote mass against the headline spec's.
 SPEC_MASS_REL = 0.01
 # The small chunk on the card against the CPU (the plain versions).
-DEVICE_VS_CPU_SPECS = ("hist:g4,seg4,i8,pl", "hist:g4,ss2,pl")
+DEVICE_VS_CPU_SPECS = ("hist:g4,seg4,i8,pl", "hist:g4,ss2,pl", "hist:g4,ss2,seg5", "sort")
 DEVICE_VS_CPU_L1, DEVICE_VS_CPU_MASS = 1e-2, 1e-3
+# `sort` against the exact scatter on the headline chunk: the same votes
+# summed in another order (float64 running sums in `sort`).
+SORT_VS_SCATTER = 1e-3
 # Histogram grid of the headline spec: (480 + 2*32) x (640 + 2*128), aligned
 # to 64/128; the dense binning form's grid drops the alignment to 64 rows.
 HS, WS = 576, 896
@@ -116,6 +143,22 @@ TEMPORAL_MASS_REL = 0.01
 # (m), bad-p.
 MULTIFRAME_GATE = {"frames": 5, "median_rel": 0.05, "mean_err": 1.9, "bad_p": 0.29}
 KERNELS_A_B = ("bin_events", "banded_resample_sum", "banded_resample_fanin")
+# Phase 9: MVSEC presets from a ROS1 bag of the synthetic rig at the DAVIS
+# 346 x 260 (the bag's 2 s stand for the presets' 55 s of indoor_flying1:
+# the one cut), 2 Mi events a camera; the fused depth's median distance to
+# the scene's planes must stay below PLANE_DIST_M.  The focus collapses on
+# the card against the CPU: confidence within COLLAPSE_RTOL of each value,
+# depth indices equal on COLLAPSE_EQUAL of the pixels.  A chunk of
+# DEEP_Z planes takes the extraction's sort-path median.
+MVSEC_PRESETS = {
+    "alg1": "configs/upenn_mvsec/flying1_full/alg1/flying1.conf",
+    "AtHc": "configs/upenn_mvsec/flying1_full/AtHc/flying1.conf",
+}
+BAG_SECONDS, BAG_PTS, BAG_SAMPLES = 2.0, 20_000, 105
+PRESET_MIN_CHUNKS = 10
+PLANE_DIST_M = 0.2
+COLLAPSE_RTOL, COLLAPSE_EQUAL = 1e-4, 0.999
+DEEP_Z = 300
 
 # The least time for a kernel's work on an H100 SXM (NVIDIA's data sheet):
 # its bytes (each input read once, each output written once) over the HBM3
@@ -419,6 +462,94 @@ def cap_cases(dev, G, E, hs, ws, K, iters) -> tuple:
     return err_a, err_b
 
 
+def one_hot_engine_cases(dev, G, E, Z, Ho, Wo, iters, small=(260, 346)) -> dict:
+    """Kernels A and B in the call forms the one-hot engine's specs give
+    them for Z planes of Ho x Wo (the headline rig: 100 of 480 x 640), each
+    against its plain version: binning on the unaligned (Ho + 64) x (Wo +
+    256) grid of ss1 (the dense form; f32 taps and int8) and on the grid of
+    ss2 (1088 x 1792); kernel B's non-segmented sweep from those 544-row
+    sources into Ho x Wo, the ss2 flat merge (7 supergroups of 10 leaves) on
+    the merge maps of leaves spread over the chunk's 0.5 m of travel, and a
+    sweep of G/2 groups into `small` planes (MVSEC's 260 x 346: an output
+    width that is not a multiple of 128).  Returns the
+    largest error of each kernel row, {"bin_events", "bin_events_int8",
+    "bin_events_dense", "banded_resample_sum"}."""
+    from dvs_mcemvs_torch.kernels import binning, resample
+    from dvs_mcemvs_torch.ops import voting_hist as vh
+
+    rng = np.random.default_rng(7)
+    f32 = dict(dtype=torch.float32, device=dev)
+    hs1, ws1 = Ho + 2 * vh.PAD_Y, Wo + 2 * vh.PAD_X
+    errs = {"bin_events": 0.0, "bin_events_int8": 0.0, "bin_events_dense": 0.0,
+            "banded_resample_sum": 0.0}
+
+    def binning_case(label, row, h, w_cols, int8):
+        hx = torch.as_tensor(rng.uniform(0, w_cols - 1, (G, E)), **f32)
+        hy = torch.as_tensor(np.sort(rng.normal(h / 2, h / 5, (G, E)).clip(0, h - 1)), **f32)
+        w = torch.as_tensor(rng.uniform(size=(G, E)) > 0.1, **f32)
+
+        def run():
+            return binning.bin_events(hx, hy, w, hs=h, ws=w_cols, binary_w=True, int8=int8,
+                                      out_dtype=torch.bfloat16)
+
+        plain = binning.bin_events_int8_reference if int8 else binning.bin_events_reference
+        what = f"bin_events one-hot {label} ({G}x{E} -> {G}x{h}x{w_cols} bfloat16)"
+        err = (compare_exact if int8 else compare)(what, run(),
+                                                   plain(hx, hy, w, h, w_cols).to(torch.bfloat16))
+        errs[row] = max(errs[row], err)
+        log(f"  {what}: {cuda_ms(run, iters):.4f} ms")
+
+    binning_case("ss1, unaligned rows", "bin_events_dense", hs1, ws1, False)
+    binning_case("ss1, unaligned rows, int8", "bin_events_dense", hs1, ws1, True)
+    binning_case("ss2", "bin_events", 2 * hs1, 2 * ws1, False)
+
+    def resample_case(label, hist, maps, src, out_h, out_w, blocked, out_dtype):
+        N, K = maps[0].shape
+
+        def run():
+            return resample.banded_resample_sum(hist, *maps, out_h=out_h, out_w=out_w,
+                                                blocked=blocked, src=src, out_dtype=out_dtype)
+
+        want = resample.banded_resample_reference(
+            hist, torch.as_tensor(src, dtype=torch.long, device=dev), *maps,
+            torch.arange(N, device=dev), n_out=N, out_h=out_h, out_w=out_w, out_dtype=out_dtype)
+        what = (f"banded_resample_sum one-hot {label} ({N}x{K}, {hist.shape[1]}x{hist.shape[2]} "
+                f"-> {out_h}x{out_w} {str(out_dtype).split('.')[-1]})")
+        errs["banded_resample_sum"] = max(errs["banded_resample_sum"],
+                                          compare(what, run(), want))
+        log(f"  {what}: {cuda_ms(run, iters):.4f} ms")
+
+    def sweep(label, K, h, w_cols, out_h, out_w):
+        blocks, sy, ty, sx, tx, _ = _sweep_inputs(dev, 1, K, Z, h, w_cols, rng)
+        maps = [m.reshape(Z, K) for m in (sy, ty, sx, tx)]
+        src = np.tile(np.arange(K)[None, :], (Z, 1))
+        resample_case(label, blocks[0].contiguous(), maps, src, out_h, out_w, False,
+                      torch.float32)
+
+    sweep(f"sweep, {hs1}-row sources", G, hs1, ws1, Ho, Wo)
+    sweep(f"sweep into {small[0]} x {small[1]}", G // 2, small[0] + 2 * vh.PAD_Y,
+          small[1] + 2 * vh.PAD_X, *small)
+
+    # The ss2 flat merge: leaves along the chunk's travel, merged 10 to a
+    # supergroup at the first segment's inverse-depth midpoint.
+    P, merge = 7, 10
+    centers = torch.zeros((P * merge, 3), **f32)
+    centers[:, 0] = torch.linspace(0.0, 0.5, P * merge, device=dev)
+    sup = torch.repeat_interleave(centers.reshape(P, merge, 3).mean(1), merge, dim=0)
+    u = 1.0 / np.linspace(2.0, 40.0, Z)[:max(1, Z // 10)]
+    m_s, bt_y, bt_x = vh._frame_change_maps(centers, sup, float(0.5 * (u.min() + u.max())),
+                                            2.0, (Wo * 0.9, Wo * 0.9, Wo / 2, Ho / 2),
+                                            vh.PAD_X, vh.PAD_Y, 2)
+    hist = torch.as_tensor(rng.gamma(0.3, 2.0, (P * merge, 2 * hs1, 2 * ws1)),
+                           **f32).to(torch.bfloat16)
+    s_ = m_s.reshape(P, merge).contiguous()
+    src = np.arange(P * merge).reshape(P, merge)
+    resample_case("ss2 flat merge", hist, [s_, bt_y.reshape(P, merge).contiguous(), s_,
+                                          bt_x.reshape(P, merge).contiguous()],
+                  src, 2 * hs1, 2 * ws1, True, torch.bfloat16)
+    return errs
+
+
 def wrappers() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
     from dvs_mcemvs_torch.kernels import binning, probes, resample
@@ -466,9 +597,11 @@ def empty_calls_launch_nothing(dev):
 def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
                  Wo=WIDTH, Z=DIM_Z, S=16, K_sweep=4, K_wide=32, probe_h=PROBE_H,
                  probe_w=PROBE_W, probe_g=PROBE_G, iters=10,
-                 cap=(CAP_G, CAP_E, CAP_HS, CAP_WS, CAP_K)):
+                 cap=(CAP_G, CAP_E, CAP_HS, CAP_WS, CAP_K), **one_hot_small):
     """Each kernel against its plain version on `dev` at the given shapes,
-    and kernels A and B past the old cap at `cap` = (G, E, hs, ws, K).
+    kernels A and B past the old cap at `cap` = (G, E, hs, ws, K), and in the
+    one-hot engine's call forms for Z planes of Ho x Wo (`one_hot_small`:
+    `one_hot_engine_cases`' `small`).
     Returns {kernel name: {max_abs_err, ms, plain_ms, library_ms, bound_ms,
     bound_by}}."""
     from dvs_mcemvs_torch.kernels import _build, binning, probes, resample
@@ -535,6 +668,9 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
                                                     edge_errs[True])
     cap_err_a, cap_err_b = cap_cases(dev, *cap, iters=2)
     results["bin_events"]["max_abs_err"] = max(results["bin_events"]["max_abs_err"], cap_err_a)
+    one_hot = one_hot_engine_cases(dev, G, E, Z, Ho, Wo, iters, **one_hot_small)
+    for row in ("bin_events", "bin_events_int8", "bin_events_dense"):
+        results[row]["max_abs_err"] = max(results[row]["max_abs_err"], one_hot.get(row, 0.0))
 
     # Kernel B through banded_resample_sum: one radix-4 merge level.
     hist, sy, ty, tx, src = _merge_level_inputs(dev, G, hs, ws, rng)
@@ -589,7 +725,8 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
             torch.arange(Z, device=dev), n_out=Z, out_h=Ho, out_w=Wo))
     log(f"  banded_resample_sum flat merge: {cuda_ms(flat, iters):.4f} ms; sweep form: "
         f"{cuda_ms(sweep_form, 2):.4f} ms")
-    err = max(err, err_flat, err_sweep, cap_err_b, resample_edge_cases(dev, hist, rng, iters))
+    err = max(err, err_flat, err_sweep, cap_err_b, resample_edge_cases(dev, hist, rng, iters),
+              one_hot.get("banded_resample_sum", 0.0))
     results["banded_resample_sum"] = dict(
         max_abs_err=err, ms=cuda_ms(merge, iters), plain_ms=cuda_ms(merge_plain, 2),
         library_ms=None,
@@ -820,7 +957,7 @@ def golden_phase(dev, cfg_name="BENCH16", specs=(HEADLINE_SPEC, I8_SPEC, FLAT_SP
 # ---------------------------------------------------------------------------
 
 
-def specs_phase(dev, workload, headline_masses, forms=SPEC_FORMS, runs=3):
+def specs_phase(dev, workload, headline_masses, forms=SPEC_FORMS, runs=2):
     """The chunk once under each spec form with fresh launch counters: the
     kernels it must reach launched, its DSIs finite with the right shape,
     its per-camera vote mass within SPEC_MASS_REL of the headline spec's;
@@ -851,6 +988,24 @@ def specs_phase(dev, workload, headline_masses, forms=SPEC_FORMS, runs=3):
         out[spec] = dict(launches=launches, seconds=seconds, median_s=median,
                          peak_gib=peak, masses=masses)
     return out
+
+
+def sort_vs_scatter_phase(workload, limit=SORT_VS_SCATTER) -> list:
+    """`sort` against the exact `scatter` on the chunk: per camera relative
+    L1 and vote mass below `limit` (the JAX package's float32 running sums
+    miss this at the headline chunk).  Returns [(l1, mass_rel) per camera]."""
+    got, _ = run_chunk(workload, "sort")
+    want, _ = run_chunk(workload, "scatter")
+    rows = []
+    for name in sorted(k for k in want.dsis if k.startswith("camera")):
+        g, w = got.dsis[name].double(), want.dsis[name].double()
+        l1 = float((g - w).abs().sum() / w.abs().sum())
+        mass = float(g.sum() / w.sum()) - 1.0
+        log(f"  sort vs scatter {name}: relative L1 {l1:.3g}, mass {mass:+.3g}")
+        if not l1 < limit or not abs(mass) < limit:
+            raise AssertionError(f"sort {name} disagrees with the exact scatter")
+        rows.append((l1, mass))
+    return rows
 
 
 def device_vs_cpu_phase(dev, specs=DEVICE_VS_CPU_SPECS, **size):
@@ -974,7 +1129,7 @@ def _timed(dev, what, fn, n_events, runs, smi="") -> tuple:
 
 
 def temporal_phase(dev, workload, masses, spec=HEADLINE_SPEC, intervals=N_INTERVALS,
-                   runs=3, smi="", needed=KERNELS_A_B):
+                   runs=2, smi="", needed=KERNELS_A_B):
     """process_2 and process_5 on the chunk, with `intervals` sub-intervals,
     under AM and HM temporal fusion: every DSI finite with the mapper's
     shape, kernels A and B launched, and under AM each camera's temporal
@@ -1016,7 +1171,7 @@ def temporal_phase(dev, workload, masses, spec=HEADLINE_SPEC, intervals=N_INTERV
 
 
 def full_seq_phase(dev, n_events=FULL_SEQ_EVENTS, duration=FULL_SEQ_DURATION,
-                   skip=FULL_SEQ_SKIP, runs=3, smi="", needed=KERNELS_A_B, **size):
+                   skip=FULL_SEQ_SKIP, runs=2, smi="", needed=KERNELS_A_B, **size):
     """run_full_seq over the headline rig's streams tiled to `n_events` a
     camera, chunks `duration` long every `skip` of their time span, each
     chunk process_1 + get_depth_map on the CLI's auto spec; once from RAM
@@ -1135,11 +1290,13 @@ def multiframe_phase(dev, cfg_name="FULL", gate=MULTIFRAME_GATE, needed=KERNELS_
     return out
 
 
-def _plane_distance(path: str) -> float:
+def _plane_distance(path: str, planes=(1.5, 2.5)) -> float:
+    """Median distance of a depth-point file's depths to the nearer plane;
+    raises at 100 points or fewer."""
     d = np.atleast_2d(np.loadtxt(path)).reshape(-1, 3)[:, 2]
     if d.size <= 100:
         raise AssertionError(f"{path}: {d.size} points")
-    return float(np.median(np.minimum(np.abs(d - 1.5), np.abs(d - 2.5))))
+    return float(np.median(np.min(np.abs(d[:, None] - np.asarray(planes)[None]), axis=1)))
 
 
 def cli_phase(dev, workdir, needed=KERNELS_A_B):
@@ -1216,6 +1373,159 @@ def cli_phase(dev, workdir, needed=KERNELS_A_B):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: MVSEC presets from a ROS1 bag, the focus collapses, a deep DSI
+# ---------------------------------------------------------------------------
+
+
+def mvsec_rig(width=346, height=260):
+    """The synthetic two-plane rig at MVSEC's DAVIS size (346 x 260, f = 226
+    px, a 10 cm baseline), moving 0.4 m/s past planes at 2.0 and 4.5 m,
+    inside the presets' 1-6.5 m."""
+    from dvs_mcemvs_torch.ops.camera import PinholeCamera
+    from dvs_mcemvs_torch.utils import synthetic
+
+    f = 226.0 * width / 346
+    cam = PinholeCamera(width=width, height=height, fx=f, fy=f, cx=width / 2, cy=height / 2)
+    return synthetic.SyntheticRig(cam=cam, baseline=0.1, travel=0.4, plane_depths=(2.0, 4.5))
+
+
+def bag_phase(dev, workdir, rig=None, n_pts=BAG_PTS, n_samples=BAG_SAMPLES,
+              seconds=BAG_SECONDS, extra=(), min_chunks=PRESET_MIN_CHUNKS,
+              needed=KERNELS_A_B, smi="") -> dict:
+    """The MVSEC presets of MVSEC_PRESETS through `dvs_mcemvs_torch.cli.main`
+    on a ROS1 bag written as MVSEC ships one: the rig's events on
+    /davis/left/events and /davis/right/events (`n_samples` sample times of
+    `n_pts` points over `seconds`), its poses on /davis/left/pose, and a
+    kalibr camchain for yaml_mvsec.  Each preset runs with its bag, calib
+    and output paths and its time window set to the bag's span (and the
+    flags `extra`); each must exit 0, write at least `min_chunks` fused
+    depth maps of more than 100 points each whose median distance to the
+    planes is below PLANE_DIST_M, and launch the kernels `needed`.  Logs
+    the bag's size, and for each run the bag's read time and ingest rate
+    (both event topics, by `io.events.read_events_rosbag`, before the run)
+    and the run's seconds, chunks per second, launches and peak memory.
+    Returns {preset: report}."""
+    from dvs_mcemvs_torch import cli
+    from dvs_mcemvs_torch.io import events as eventsmod
+    from dvs_mcemvs_torch.utils import synthetic
+
+    rig = rig or mvsec_rig()
+    t0 = time.perf_counter()
+    paths = synthetic.write_bag_fixture(os.path.join(workdir, "mvsec"), rig=rig, n_pts=n_pts,
+                                        n_samples=n_samples, duration=seconds,
+                                        t0=1_506_117_000.0)
+    counts = [ev.num for ev in paths["events"]]
+    log(f"  bag: {os.path.getsize(paths['bag']) / 2**20:.1f} MiB, events a camera {counts} "
+        f"over {seconds} s, {rig.cam.width}x{rig.cam.height}; written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    log(f"  cut: the presets' window (55 s of indoor_flying1) is the bag's {seconds} s"
+        + (f"; also overridden: {' '.join(extra)}" if extra else ""))
+    out = {}
+    for name, preset in MVSEC_PRESETS.items():
+        t0 = time.perf_counter()
+        for topic in paths["topics"]:
+            eventsmod.read_events_rosbag(paths["bag"], topic)
+        read_s = time.perf_counter() - t0
+        log(f"  {name}: bag read, both event topics, {read_s:.3f} s, "
+            f"{sum(counts) / read_s / 1e6:.3f} Mev/s of ingest")
+        out_dir = os.path.join(workdir, f"mvsec_{name}")
+        args = [f"--flagfile={os.path.join(HERE, preset)}", f"--bag_filename={paths['bag']}",
+                f"--calib_path={paths['camchain']}", f"--out_path={out_dir}/",
+                "--start_time_s=0", f"--stop_time_s={seconds}",
+                f"--platform={'cuda' if dev.type == 'cuda' else 'cpu'}", *extra]
+        _reset_peak(dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(args)
+        _sync(dev)
+        run_s = time.perf_counter() - t0
+        launches = {n: read_counts()[n] for n in KERNELS_A_B}
+        fused = sorted(f for f in os.listdir(out_dir) if f.endswith("depth_points_fused.txt"))
+        dist = [_plane_distance(os.path.join(out_dir, f), rig.plane_depths) for f in fused]
+        n_pts_min = min(np.atleast_2d(np.loadtxt(os.path.join(out_dir, f))).shape[0]
+                        for f in fused) if fused else 0
+        what = f"preset {preset}"
+        log(f"  {what}: exit {rc}, {len(fused)} chunks in {run_s:.3f} s of the whole run "
+            f"(the bag read whole into RAM, voting, extraction, saves), "
+            f"{len(fused) / run_s:.3f} chunks/s; "
+            f"launches {launches}; peak device memory {_peak(dev)}; fused depth median "
+            f"distance to the planes, worst chunk {max(dist, default=float('nan')):.4f} m; "
+            f"fewest points a chunk {n_pts_min}" + (f"; {smi}" if smi else ""))
+        if rc != 0 or len(fused) < min_chunks or max(dist) >= PLANE_DIST_M:
+            raise AssertionError(f"{what}: exit {rc}, {len(fused)} chunks, distances {dist}")
+        _check_launched(what, launches, needed)
+        out[name] = dict(chunks=len(fused), seconds=run_s, launches=launches, dist=max(dist),
+                         read_s=read_s)
+    return out
+
+
+def collapse_phase(dev, fused_cpu, mapper, runs=2) -> dict:
+    """`collapse_method` 0-4 on one fused DSI, on the card against the CPU:
+    the collapse's confidence within COLLAPSE_RTOL of each value and its
+    depth indices equal on COLLAPSE_EQUAL of the pixels; get_depth_map's
+    seconds with each method (median of `runs` after a warm-up).  Returns
+    {method: (seconds, largest relative error, share of equal indices)}."""
+    from dvs_mcemvs_torch import mapper as mappermod
+    from dvs_mcemvs_torch.ops import extract, grid
+
+    on_dev = fused_cpu.to(dev)
+    out = {}
+    for method in range(5):
+        conf, idx = grid.collapse(on_dev, method)
+        t0 = time.perf_counter()
+        want_conf, want_idx = grid.collapse(fused_cpu, method)
+        cpu_s = time.perf_counter() - t0
+        g, w = conf.cpu().double(), want_conf.double()
+        excess = float(((g - w).abs() - COLLAPSE_RTOL * w.abs()).max())
+        rel = float(((g - w).abs() / w.abs().clamp(min=1e-30)).max())
+        equal = float((idx.cpu() == want_idx).double().mean())
+        opts = extract.DepthMapOptions(collapse_method=method)
+        median, _ = median_seconds(
+            lambda: (mappermod.get_depth_map(mapper, on_dev, opts), _sync(dev)), runs + 1)
+        log(f"  collapse_method {method}: card vs cpu confidence max relative error {rel:.3g}, "
+            f"equal indices {equal:.6f}; get_depth_map {median:.6f} s (median of {runs + 1}); "
+            f"the cpu's collapse {cpu_s:.3f} s")
+        if excess > 0 or equal < COLLAPSE_EQUAL:
+            raise AssertionError(f"collapse_method {method}: the card disagrees with the CPU")
+        out[method] = (median, rel, equal)
+    return out
+
+
+def deep_chunk_phase(dev, workload, dim_z=DEEP_Z, needed=KERNELS_A_B) -> dict:
+    """One process_1 chunk of the headline workload's events at `dim_z`
+    planes over its depth range (more than 256: the extraction's median
+    takes its gather + sort path) under the headline spec; its filtered
+    depth indices must equal the CPU's extraction of the same DSI.  Returns
+    its report."""
+    from dvs_mcemvs_torch import mapper as mappermod
+    from dvs_mcemvs_torch.ops import extract
+
+    mappers, events, trajs, rig = workload
+    dv = mappers[0].depth_vec
+    deep = mappermod.make_mapper(rig.cam, mappermod.DsiShape(
+        dim_z=dim_z, min_depth=dv.min_depth, max_depth=dv.max_depth))
+    workload = [deep, deep], events, trajs, rig
+    _reset_peak(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    res, dm = run_chunk(workload, HEADLINE_SPEC)
+    seconds = time.perf_counter() - t0
+    launches = {n: read_counts()[n] for n in KERNELS_A_B}
+    t0 = time.perf_counter()
+    want = mappermod.get_depth_map(deep, res.fused_dsi.cpu(), extract.DepthMapOptions())
+    cpu_s = time.perf_counter() - t0
+    equal = bool((dm.depth_indices.cpu() == want.depth_indices).all())
+    log(f"  process_1 chunk at {dim_z} planes ({HEADLINE_SPEC}): {seconds:.6f} s (first run), "
+        f"launches {launches}, peak device memory {_peak(dev)}; filtered indices equal to the "
+        f"cpu's ({cpu_s:.3f} s): {equal}; {int((dm.mask > 0).sum())} masked pixels, largest "
+        f"index {int(dm.depth_indices.max())}")
+    if not equal:
+        raise AssertionError(f"{dim_z}-plane chunk: the card's filtered indices differ")
+    _check_launched(f"{dim_z}-plane chunk", launches, needed)
+    return dict(seconds=seconds, launches=launches)
+
+
 def optional_modules() -> str:
     """Which of the optional host packages import here."""
     import importlib
@@ -1240,14 +1550,26 @@ def main() -> int:
     from dvs_mcemvs_torch.kernels import _build, binning, probes, resample
 
     t_start = time.perf_counter()
+    marks = []
+
+    def phase(title=None):
+        """Log the seconds of the phase that ends here, then `title`."""
+        now = time.perf_counter()
+        if marks:
+            marks[-1] = now - marks[-1]
+            log(f"  phase {len(marks)} in {marks[-1]:.1f} s")
+        if title:
+            marks.append(now)
+            log(f"[{len(marks)}/9] {title}")
+
     dev = require_cuda()
     smi = nvidia_smi_line()
-    log(f"[1/8] device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
-        f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    phase(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
+          f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)
     log(f"  optional host modules: {optional_modules()}")
 
-    log("[2/8] build (nvcc, sm_90a, one process per source)")
+    phase("build (nvcc, sm_90a, one process per source)")
     t0 = time.perf_counter()
     _build.build("binning", "resample", "probes")
     for lib in (binning, resample, probes):
@@ -1257,10 +1579,10 @@ def main() -> int:
         lines = [ln.strip() for ln in report.splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {name}: nvcc {seconds:.2f} s; " + " | ".join(lines))
 
-    log("[3/8] kernels vs plain versions at the headline shapes, and past the 65,535 cap")
+    phase("kernels vs plain versions at the headline shapes, and past the 65,535 cap")
     results = kernel_phase(dev)
 
-    log(f"[4/8] process_1 chunk: 2 x {N_EVENTS} events, {WIDTH}x{HEIGHT}x{DIM_Z}")
+    phase(f"process_1 chunk: 2 x {N_EVENTS} events, {WIDTH}x{HEIGHT}x{DIM_Z}")
     workload = build_workload(dev)
     torch.cuda.reset_peak_memory_stats()
     launches, seconds, masses = chunk_phase(dev, workload)
@@ -1269,25 +1591,27 @@ def main() -> int:
         f"[{', '.join(f'{s:.6f}' for s in seconds)}]; {2 * N_EVENTS / med / 1e6:.3f} Mev/s; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; {smi}")
 
-    log("[5/8] golden gate: BENCH16 on the literal spec; scored under i8 and the flat merge")
+    phase("golden gate: BENCH16 on the literal spec; scored under i8 and the flat merge")
     golden_phase(dev)
 
-    log(f"[6/8] spec forms on the headline chunk; {smi}")
+    phase(f"spec forms on the headline chunk; {smi}")
     forms = specs_phase(dev, workload, masses)
     launches["bin_events_int8"] = forms[I8_SPEC]["launches"]["bin_events"]
+    log("  sort against the exact scatter on the headline chunk")
+    sort_vs_scatter_phase(workload)
     log("  the card against the CPU on a small chunk")
     device_vs_cpu_phase(dev)
 
-    log("[7/8] dense binning path and platform probes")
+    phase("dense binning path and platform probes")
     launches["bin_events_dense"] = dense_phase(dev, workload)
     _, probe_launches = probe_phase()
     for name in ("smem_copy", "block_step", "hbm_stream", "dyn_slice"):
         launches[name] = probe_launches[name]
 
-    log(f"[8/8] pipelines: process_2/5 on the headline chunk; {smi}")
-    t8 = time.perf_counter()
+    phase(f"pipelines: process_2/5 on the headline chunk; {smi}")
     temporal_phase(dev, workload, masses, smi=smi)
-    del workload
+    # Phase 9's focus collapses run on this chunk's fused DSI.
+    fused_cpu = run_chunk(workload, HEADLINE_SPEC)[0].fused_dsi.cpu()
     log(f"  full_seq: 2 x {FULL_SEQ_EVENTS} events, RAM and the native event store")
     full_seq_phase(dev, smi=smi)
     log("  the multi-frame golden gate (FULL fixture, full_seq chunking)")
@@ -1295,7 +1619,14 @@ def main() -> int:
     log("  the CLI (dvs_mcemvs_torch.cli.main) on the esim fixture")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as workdir:
         cli_phase(dev, workdir)
-    log(f"  phase 8 in {time.perf_counter() - t8:.1f} s")
+
+    phase(f"presets from a ROS1 bag, the focus collapses, a {DEEP_Z}-plane chunk; {smi}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bag_") as workdir:
+        bag_phase(dev, workdir, smi=smi)
+    log("  focus collapses on the headline chunk's fused DSI, the card against the CPU")
+    collapse_phase(dev, fused_cpu, workload[0][0])
+    deep_chunk_phase(dev, workload)
+    phase()
 
     binning_src = "dvs_mcemvs_torch/csrc/binning.cu"
     resample_src = "dvs_mcemvs_torch/csrc/resample.cu"
@@ -1319,7 +1650,8 @@ def main() -> int:
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **{k: results[name][k] for k in keys}}
                for name, (src, rep) in sources.items()]
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"total {time.perf_counter() - t_start:.1f} s; phases "
+        f"{', '.join(f'{t:.1f}' for t in marks)} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

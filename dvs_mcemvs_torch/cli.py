@@ -11,10 +11,8 @@ worker pool, and the same artifacts.  Accepts the reference's own
     python -m dvs_mcemvs_torch.cli --flagfile ... --platform=cpu   # the CPU
 
 `--platform` '' or 'cuda' runs on the card and raises without one; 'cpu'
-runs on the CPU.  What is not ported is refused with a ValueError that
-names its ROADMAP item: more than one device or process (Queue 1 item 6),
-rosbag inputs (Queue 1 item 3), the focus collapses `--collapse_method`
-0-4 (Queue 1 item 2).
+runs on the CPU.  More than one device or process is not ported and is
+refused with a ValueError that names its ROADMAP item (Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -61,17 +59,6 @@ def check_ported(cfg: RunConfig) -> None:
         raise ValueError("more than one device or process (--num_devices > 1, "
                          "--coordinator, --num_processes, --process_id) is not ported "
                          "(ROADMAP Queue 1 item 6)")
-    inputs = [cfg.bag_filename, cfg.bag_filename_left, cfg.bag_filename_right,
-              cfg.bag_filename_pose, cfg.bag_filename2]
-    if cfg.bag_filename:
-        inputs = [cfg.bag_filename, cfg.bag_filename2]
-    bags = [p for p in inputs if p.endswith(".bag")]
-    if bags:
-        raise ValueError(f"rosbag inputs {bags} are not ported (io/rosbag1.py, "
-                         "ROADMAP Queue 1 item 3)")
-    if cfg.collapse_method != -1:
-        raise ValueError(f"--collapse_method={cfg.collapse_method}: the focus collapses "
-                         "0-4 are not ported (ROADMAP Queue 1 item 2)")
 
 
 def _se3_from_mat(T: np.ndarray, device) -> SE3:
@@ -170,24 +157,29 @@ def run(cfg: RunConfig) -> int:
 
     # full_seq over HDF5 inputs never materializes the stream: the .evs
     # cache next to the source is stream-built in O(chunk) memory and every
-    # window is an mmap'd O(log E) lookup.
+    # window is an mmap'd O(log E) lookup.  Other sources (a bag too) are
+    # read into RAM.
     stream_ok = cfg.full_seq and cfg.use_event_store
 
-    def _open_source(path: str, offset: float):
+    def _open_source(path: str, topic: str, offset: float):
         if stream_ok and os.path.splitext(path)[1].lower() in (".h5", ".hdf5"):
             from .io import evstore
 
             store = evstore.NormalizedStore(evstore.open_or_build_h5(path), offset, origin)
             log.info("streaming event store for %s: %d events", path, store.count)
             return store
-        return eventsmod.read_events(path, t_start=cfg.start_time_s, t_stop=cfg.stop_time_s,
-                                     offset=offset, origin=origin)
+        window = dict(t_start=cfg.start_time_s, t_stop=cfg.stop_time_s, offset=offset,
+                      origin=origin)
+        if path.endswith(".bag"):
+            return eventsmod.read_events_rosbag(path, topic, **window)
+        return eventsmod.read_events(path, **window)
 
     log.info("Loading events")
-    events = [_open_source(cfg.bag_filename_left, cfg.offset0),
-              _open_source(cfg.bag_filename_right, cfg.offset1)]
+    events = [_open_source(cfg.bag_filename_left, cfg.event_topic0, cfg.offset0),
+              _open_source(cfg.bag_filename_right, cfg.event_topic1, cfg.offset1)]
     if trinocular:
-        events.append(_open_source(cfg.bag_filename2 or cfg.bag_filename, cfg.offset2))
+        events.append(_open_source(cfg.bag_filename2 or cfg.bag_filename, cfg.event_topic2,
+                                   cfg.offset2))
     log.info("Events: %s", [s.num if isinstance(s, Events)
                             else s.window_count(cfg.start_time_s, cfg.stop_time_s)
                             for s in events])

@@ -5,7 +5,7 @@ caller already holds: the evaluation rig (`DsecEvalRig`) and the metrics
 consolidated over matched frames (`evaluate_sequence`, as the reference's
 scripts/evaluate_mcemvs_dsec.py:129-145 does).  Pure numpy, on the host.
 The file loaders of the JAX module (GT disparity PNGs, depth-point files,
-timestamp matching) are ROADMAP Queue 1 item 3.
+timestamp matching) are ROADMAP Queue 1 item 2.
 """
 
 from __future__ import annotations

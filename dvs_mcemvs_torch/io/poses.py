@@ -1,9 +1,9 @@
 """Pose-stream readers -> `Trajectory`.
 
-Port of dvs_mcemvs_tpu/io/poses.py, less the rosbag reader (ROADMAP Queue 1
-item 3): TUM trajectory text files and npz arrays, read on the host and
-placed on `device` (the card when None, raising without one; "cpu" for the
-CPU), as `ops.trajectory.from_arrays` does.
+Port of dvs_mcemvs_tpu/io/poses.py: TUM trajectory text files, npz arrays
+and ROS1 bags (the four pose message types of data_loading.cpp:334-463),
+read on the host and placed on `device` (the card when None, raising
+without one; "cpu" for the CPU), as `ops.trajectory.from_arrays` does.
 """
 
 from __future__ import annotations
@@ -64,11 +64,26 @@ def read_poses_npz(
     return _build(ts, data["q"], data["p"], t_start, t_stop, origin, device)
 
 
+def read_poses_rosbag(
+    path: str,
+    topic: str,
+    t_start: float = -1e19,
+    t_stop: float = 1e19,
+    origin: Optional[TimeOrigin] = None,
+    device=None,
+) -> trajmod.Trajectory:
+    """The pose messages on `topic` of a ROS1 bag ("" = the bag's pose
+    messages on any topic), through `io/rosbag1.py`."""
+    from . import rosbag1
+
+    ts, qs, ps = rosbag1.read_pose_bag(path, topic)
+    return _build(ts, qs, ps, t_start, t_stop, origin, device)
+
+
 def read_poses(path: str, topic: str = "", **kwargs) -> trajmod.Trajectory:
-    """Dispatch on file extension (`topic` names a rosbag's, not ported)."""
+    """Dispatch on file extension; `topic` names a bag's pose topic."""
     if path.endswith(".bag"):
-        raise ValueError(f"{path}: rosbag inputs are not ported (io/rosbag1.py, "
-                         "ROADMAP Queue 1 item 3)")
+        return read_poses_rosbag(path, topic, **kwargs)
     if path.endswith(".npz"):
         return read_poses_npz(path, **kwargs)
     return read_poses_tum(path, **kwargs)

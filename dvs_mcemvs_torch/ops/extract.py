@@ -2,8 +2,8 @@
 
 Port of dvs_mcemvs_tpu/ops/extract.py (the reference's getDepthMapFromDSI):
 confidence normalization, the adaptive Gaussian threshold, the masked Huang
-median as a rank binary search, border removal and index-to-depth on the
-device; Telea inpainting (`densify_host`) on the host.
+median (a rank binary search up to 256 levels, a per-pixel sort above),
+border removal and index-to-depth on the device; Telea inpainting (`densify_host`) on the host.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ class DepthMapOptions:
     save_conf_stats: bool = False
     max_confidence: float = 0.0
     rv_pos: float = 0.0
-    collapse_method: int = -1  # -1 = argmax of votes (the only one ported)
+    collapse_method: int = -1  # -1 = argmax of votes; 0-4 the focus collapses
 
 
 class DepthMapResult(NamedTuple):
@@ -104,14 +104,46 @@ def _masked_median_bsearch(img: torch.Tensor, mask: torch.Tensor,
     return torch.where(n > 0, lo, torch.zeros_like(lo)).to(torch.float32)
 
 
-def masked_median_filter(img_u8: torch.Tensor, mask: torch.Tensor,
-                         patch_size: int, levels: int) -> torch.Tensor:
-    """Masked lower median over the (patch x patch) neighbourhood of integer
-    values in [0, levels); pixels with no masked neighbour get 0.  Only the
-    histogram path (levels <= 256) is ported."""
-    if levels > 256:
-        raise ValueError(f"levels={levels}: only the <= 256-level median is ported")
-    return _masked_median_bsearch(img_u8, mask, patch_size, levels)
+def masked_median_filter(img_u8: torch.Tensor, mask: torch.Tensor, patch_size: int,
+                         levels: Optional[int] = None) -> torch.Tensor:
+    """Masked lower median over the (patch x patch) neighbourhood, as
+    huangMedianFilter: only pixels with mask > 0 count, the median is the
+    value of rank (n+1)/2 among the n of them, and a pixel with none gets 0.
+
+    For integer values in [0, `levels`) with `levels` <= 256 it is a rank
+    binary search (`_masked_median_bsearch`); otherwise (more levels, or
+    None) every pixel's neighbours are gathered and sorted, exact for any
+    float input."""
+    if levels is not None and levels <= 256:
+        return _masked_median_bsearch(img_u8, mask, patch_size, levels)
+    H, W = img_u8.shape
+    p = patch_size // 2
+    m = mask > 0
+    img = img_u8.to(torch.float32)
+    # Out-of-image and unmasked neighbours sort to the end.
+    big = 1e30
+    vals = []
+    for dy in range(-p, p + 1):
+        for dx in range(-p, p + 1):
+            shifted = torch.full((H, W), big, dtype=torch.float32, device=img.device)
+            ys = slice(max(0, -dy), min(H, H - dy))
+            xs = slice(max(0, -dx), min(W, W - dx))
+            src_ys = slice(max(0, dy), min(H, H + dy))
+            src_xs = slice(max(0, dx), min(W, W + dx))
+            shifted[ys, xs] = torch.where(m[src_ys, src_xs], img[src_ys, src_xs],
+                                          torch.full_like(img[src_ys, src_xs], big))
+            vals.append(shifted)
+    stack = torch.stack(vals, dim=-1)                 # (H, W, p^2)
+    n = torch.sum(stack < big, dim=-1)
+    rank = torch.clamp((n + 1) // 2 - 1, min=0)       # 0-based lower median
+    med = torch.gather(torch.sort(stack, dim=-1).values, -1, rank[..., None])[..., 0]
+    return torch.where(n > 0, med, torch.zeros_like(med))
+
+
+def masked_median_filter_u8(img_u8: torch.Tensor, mask: torch.Tensor, patch_size: int,
+                            levels: int = 256) -> torch.Tensor:
+    """`masked_median_filter` as int32."""
+    return masked_median_filter(img_u8, mask, patch_size, levels=levels).to(torch.int32)
 
 
 def remove_mask_boundary(mask: torch.Tensor, border_size: int) -> torch.Tensor:
@@ -133,9 +165,11 @@ def extract_from_collapsed(confidence: torch.Tensor, depth_indices: torch.Tensor
     conf_u8 = normalize_confidence(confidence, options.max_confidence)
     mask = adaptive_threshold_mask(
         conf_u8, options.adaptive_threshold_kernel_size, options.adaptive_threshold_c)
-    filtered_idx = masked_median_filter(
+    # Depth indices are integers in [0, Z): the rank search up to 256 planes,
+    # the gather + sort above.
+    filtered_idx = masked_median_filter_u8(
         depth_indices.to(torch.float32), mask, options.median_filter_size,
-        levels=depth_vec.n).to(torch.int32)
+        levels=depth_vec.n)
     border = max(options.adaptive_threshold_kernel_size // 2, 1)
     mask = remove_mask_boundary(mask, border)
     depth = depth_vec.depth_at_index(torch.clamp(filtered_idx, 0, depth_vec.n - 1))

@@ -1,8 +1,10 @@
 """DSI voxel-grid operations: fusion, Z-collapse and 2D filtering.
 
-Port of the parts of dvs_mcemvs_tpu/ops/grid.py that process_1, process_2
-and process_5 run.  A DSI is a (Z, H, W) float32 tensor; the two-grid
-fusion ops keep the reference's epsilon semantics.
+Port of the parts of dvs_mcemvs_tpu/ops/grid.py that process_1, process_2,
+process_5 and the CLI's `--collapse_method` run: the fusions, the argmax
+collapse and the five focus-measure collapses with their 2D filters.  A
+DSI is a (Z, H, W) float32 tensor; the two-grid fusion ops keep the
+reference's epsilon semantics.
 """
 
 from __future__ import annotations
@@ -132,14 +134,6 @@ def am_from_sum(acc, n: int):
     return acc / float(n)
 
 
-def collapse(dsi: torch.Tensor, method: int = -1):
-    """Z-collapse by `collapse_method`; only -1 (argmax of votes) is ported."""
-    if method != -1:
-        raise ValueError(f"collapse method {method} is not ported (only -1; the focus "
-                         "collapses 0-4 are ROADMAP Queue 1 item 2)")
-    return collapse_max(dsi)
-
-
 def _pad_index(n: int, before: int, after: int, border: str) -> np.ndarray:
     """Source index of every position of an axis padded by (before, after);
     -1 marks a zero pad."""
@@ -217,3 +211,106 @@ def gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
     x = i - (ksize - 1) * 0.5
     k = np.exp(-(x * x) / (2.0 * sigma * sigma))
     return (k / k.sum()).astype(np.float32)
+
+
+def gaussian_ksize_from_sigma(sigma: float, depth_is_8u: bool = False) -> int:
+    """cv::GaussianBlur(Size(0,0), sigma) kernel-size rule."""
+    factor = 3 if depth_is_8u else 4
+    k = int(round(sigma * factor * 2 + 1)) | 1
+    return max(k, 1)
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float, border: str = "reflect") -> torch.Tensor:
+    """cv::GaussianBlur(src, dst, Size(0,0), sigma) on float32 images."""
+    k = gaussian_kernel_1d(gaussian_ksize_from_sigma(sigma), sigma)
+    return sep_conv2d_same(img, k, k, border)
+
+
+_SOBEL_D = np.array([-1.0, 0.0, 1.0], dtype=np.float32)
+_SOBEL_S = np.array([1.0, 2.0, 1.0], dtype=np.float32)
+# getDerivKernels(2, 0, ksize=5): second derivative and smoothing taps.
+_DERIV2_5 = np.array([1.0, 0.0, -2.0, 0.0, 1.0], dtype=np.float32)
+_SMOOTH_5 = np.array([1.0, 4.0, 6.0, 4.0, 1.0], dtype=np.float32)
+
+
+def sobel_grad_mag_sq(img: torch.Tensor, border: str = "reflect101") -> torch.Tensor:
+    """grad_x^2 + grad_y^2 with cv::Sobel 3x3 kernels (BORDER_DEFAULT)."""
+    gx = sep_conv2d_same(img, _SOBEL_D, _SOBEL_S, border)
+    gy = sep_conv2d_same(img, _SOBEL_S, _SOBEL_D, border)
+    return gx * gx + gy * gy
+
+
+def laplacian5(img: torch.Tensor, border: str = "reflect101") -> torch.Tensor:
+    """cv::Laplacian(..., ksize=5): d2x (x) smooth_y + smooth_x (x) d2y."""
+    a = sep_conv2d_same(img, _DERIV2_5, _SMOOTH_5, border)
+    b = sep_conv2d_same(img, _SMOOTH_5, _DERIV2_5, border)
+    return a + b
+
+
+def box_mean(img: torch.Tensor, half: int) -> torch.Tensor:
+    """Plain (2*half+1)^2 patch mean, zero outside the image."""
+    size = 2 * half + 1
+    return conv2d_same(img, np.full((size, size), 1.0 / (size * size), np.float32),
+                       border="zero")
+
+
+# Focus-measure collapses (src/cartesian3dgrid.cpp:192-414): a focus image a
+# plane, then the per-pixel maximum over depth.  A pixel where no plane's
+# focus beats 0 keeps (conf 0, index 0), the reference's zero-initialised
+# best.
+
+
+def _collapse_by_focus(focus: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    conf, idx = collapse_max(focus)
+    return conf, torch.where(conf > 0, idx, torch.zeros_like(idx))
+
+
+def collapse_by_grad_mag(dsi: torch.Tensor, half_patchsize: int = 2):
+    """Sobel gradient-magnitude focus, patch-averaged (cpp:192-240); pixels
+    within `half_patchsize` of the border have zero focus, as the reference
+    updates only the interior."""
+    focus = box_mean(sobel_grad_mag_sq(dsi), half_patchsize)
+    _, H, W = dsi.shape
+    ys = torch.arange(H, device=dsi.device)[:, None]
+    xs = torch.arange(W, device=dsi.device)[None, :]
+    interior = ((ys >= half_patchsize) & (ys < H - half_patchsize)
+                & (xs >= half_patchsize) & (xs < W - half_patchsize))
+    conf, idx = _collapse_by_focus(torch.where(interior[None], focus, torch.zeros_like(focus)))
+    return torch.sqrt(conf), idx
+
+
+def collapse_by_laplacian(dsi: torch.Tensor):
+    """Squared 5-tap Laplacian focus (cpp:243-281)."""
+    hf = laplacian5(dsi)
+    conf, idx = _collapse_by_focus(hf * hf)
+    return torch.sqrt(conf), idx
+
+
+def collapse_by_dog(dsi: torch.Tensor, sigma: float = 0.5, sigma2_ratio: float = 1.6):
+    """|DoG| focus with sigma and 1.6 sigma Gaussians (cpp:284-327)."""
+    return _collapse_by_focus(torch.abs(gaussian_blur(dsi, sigma)
+                                        - gaussian_blur(dsi, sigma * sigma2_ratio)))
+
+
+def collapse_by_local_var(dsi: torch.Tensor, sigma: float = 0.5):
+    """Gaussian local variance focus (cpp:330-372)."""
+    m = gaussian_blur(dsi, sigma)
+    ms = gaussian_blur(dsi * dsi, sigma)
+    return _collapse_by_focus(torch.clamp(ms - m * m, min=0.0))
+
+
+def collapse_by_local_mean_square(dsi: torch.Tensor, sigma: float = 0.5):
+    """Gaussian local mean-square focus (cpp:375-414)."""
+    return _collapse_by_focus(gaussian_blur(dsi * dsi, sigma))
+
+
+_COLLAPSES = {0: collapse_by_local_var, 1: collapse_by_local_mean_square,
+              2: collapse_by_grad_mag, 3: collapse_by_laplacian, 4: collapse_by_dog}
+
+
+def collapse(dsi: torch.Tensor, method: int = -1):
+    """Z-collapse by `collapse_method`, getDepthMapFromDSI's switch
+    (src/mapper_emvs_stereo.cpp:348-370): 0 local variance, 1 local mean
+    square, 2 gradient magnitude, 3 Laplacian, 4 difference of Gaussians;
+    any other value the argmax of votes."""
+    return _COLLAPSES.get(method, collapse_max)(dsi)

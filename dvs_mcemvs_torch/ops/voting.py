@@ -6,8 +6,9 @@ Port of dvs_mcemvs_tpu/ops/voting.py:
   2. per packet, one planar homography moves rectified event pixels to the
      z0 depth plane of the reference view (`warp_events_to_z0`);
   3. a backend votes the z0 locations into every depth plane: the exact
-     per-event scatter (`splat_scatter`) or the histogram backend of
-     `voting_hist` (spec strings, `resolve_backend`).
+     per-event scatter (`splat_scatter`), its sort + segment-sum form
+     (`splat_sort`), or the histogram backend of `voting_hist` (spec
+     strings, `resolve_backend`).
 """
 
 from __future__ import annotations
@@ -209,31 +210,89 @@ def splat_scatter(
     return out.reshape(Z, height, width)
 
 
+def splat_sort(
+    packets: WarpedPackets,
+    depths: torch.Tensor,
+    z0: float,
+    vcam_params: Tuple[float, float, float, float],
+    width: int,
+    height: int,
+    plane_block: int = 8,
+) -> torch.Tensor:
+    """Sort + segment-sum backend: per block of `plane_block` planes, the
+    flat voxel indices of every 4-corner vote are sorted, each run of equal
+    indices is summed, and one write of unique indices stores the run
+    totals.
+
+    A run's total is the difference of two running sums, as in the JAX
+    package, but the running sum is float64 here: the JAX package's float32
+    one steps by 1.0 once it passes 2^23, which a plane block of the
+    headline chunk (1 Mi events x 4 taps x 8 planes) reaches, and its
+    voxel totals (a few votes each) then lose whole votes.  In float64 a
+    total is as exact as float32 can hold it."""
+    fx, fy, cx, cy = vcam_params
+    K, P, _ = packets.xy_z0.shape
+    E = K * P
+    xy = packets.xy_z0.reshape(E, 2)
+    pw = packets.event_weights()
+    Z = depths.shape[0]
+    HW = height * width
+    key_dtype = torch.int32 if Z * HW < 2**31 else torch.int64
+    out = torch.zeros(Z * HW, dtype=torch.float32, device=xy.device)
+    last = torch.ones(1, dtype=torch.bool, device=xy.device)
+    for z_lo in range(0, Z, plane_block):
+        sl = slice(z_lo, min(z_lo + plane_block, Z))
+        a, bx, by, d = (c.T.repeat_interleave(P, dim=1) for c in eq15_coefficients(
+            packets.centers, depths[sl], z0, fx, fy, cx, cy))     # (ZB, E)
+        X = (xy[None, :, 0] * a + bx) / d
+        Y = (xy[None, :, 1] * a + by) / d
+        idx4, w4 = bilinear_corners(X, Y, width, height)          # (ZB, E, 4)
+        plane = (z_lo + torch.arange(a.shape[0], device=xy.device))[:, None, None] * HW
+        sidx, order = torch.sort((idx4 + plane).reshape(-1).to(key_dtype))
+        csum = torch.cumsum((w4 * pw[None, :, None]).reshape(-1)[order].double(), 0)
+        # A run of equal voxel indices ends where the next index differs; its
+        # total is the running sum there less the one at the previous end.
+        ends = torch.nonzero(torch.cat([sidx[1:] != sidx[:-1], last])).squeeze(1)
+        out[sidx[ends].long()] = torch.diff(csum[ends], prepend=csum.new_zeros(1)).float()
+    return out.reshape(Z, height, width)
+
+
+SPLAT_BACKENDS = {
+    "scatter": splat_scatter,
+    "sort": splat_sort,
+}
+# The JAX package's two named histogram backends, both on its one-hot-matmul
+# engine: the plain grouped sweep and the exact-grouping 2x-supersampled one.
+HIST_ALIASES = {"hist": "hist:g16", "hist_exact": "hist:g1,ss2"}
+
+
 @functools.lru_cache(maxsize=None)
 def resolve_backend(spec: str):
     """Resolve a backend spec string to a splat callable.
 
-    "scatter" is the exact per-event backend.  "hist:<tokens>,pl" is the
-    histogram backend on the hand-written kernels, with the JAX package's
-    tokens: "g<N>" (group size), "seg<S>" (inverse-depth segments), "bf"
-    (butterfly merge; flat without it), "ss<k>" (supersampling), "px<N>" /
-    "py<N>" (z0-grid padding), "nocorr" (no sweep correction), "f32" (float32
-    histograms), "i8" (int8 binning taps) and "pl" (the kernel engine).
-    Without "pl" a spec names the JAX package's one-hot-matmul engine, which
-    is not ported, nor are "sort", "hist" and "hist_exact" (ROADMAP Queue 1
-    item 1).  Unknown tokens raise.
+    Plain names: "scatter" (exact per-event scatter), "sort" (its sort +
+    segment-sum form), "hist" and "hist_exact" (HIST_ALIASES).  "hist:"
+    takes the JAX package's tokens: "g<N>" (group size), "seg<S>"
+    (inverse-depth segments), "bf" (butterfly merge; flat without it),
+    "ss<k>" (supersampling), "px<N>" / "py<N>" (z0-grid padding),
+    "nocorr" (no sweep correction), "f32" (float32 histograms), "i8" (int8
+    binning taps) and "pl" (the kernel engine's aligned grid; without it
+    the spec is the JAX package's one-hot-matmul engine, which the port
+    runs on the same kernels, see `voting_hist`).  Unknown names and
+    tokens raise.
     """
     name, _, args = spec.partition(":")
     if not args:
-        if name == "scatter":
-            return splat_scatter
-        raise ValueError(f"backend {name!r} is not ported (ROADMAP Queue 1 item 1)")
+        if name in HIST_ALIASES:
+            return resolve_backend(HIST_ALIASES[name])
+        if name not in SPLAT_BACKENDS:
+            raise ValueError(f"unknown backend {name!r}")
+        return SPLAT_BACKENDS[name]
     if name != "hist":
         raise ValueError(f"backend {name!r} takes no {args!r} options")
     from . import voting_hist
 
     kw = {}
-    kernel_engine = False
     for tok in args.split(","):
         if tok.startswith("seg"):
             kw["segments"] = int(tok[3:])
@@ -252,13 +311,9 @@ def resolve_backend(spec: str):
         elif tok == "i8":
             kw["bin_dtype"] = torch.int8
         elif tok == "pl":
-            kernel_engine = True
+            kw["engine"] = "pallas"
         elif tok == "bf":
             kw["merge_mode"] = "butterfly"
         else:
             raise ValueError(f"unknown hist option {tok!r} in {spec!r}")
-    if not kernel_engine:
-        raise ValueError(
-            f"{spec!r} names the one-hot-matmul engine, which is not ported "
-            "(ROADMAP Queue 1 item 1); add 'pl' for the kernel engine")
     return voting_hist.make_hist_backend(**kw)

@@ -1,7 +1,7 @@
 """Histogram + separable affine-resample voting on the hand-written kernels.
 
-Port of the kernel-engine path of dvs_mcemvs_tpu/ops/voting_hist.py (every
-`hist:...,pl` spec):
+Port of dvs_mcemvs_tpu/ops/voting_hist.py, every `hist:` spec on both of
+its engines:
 
 1. Packets are grouped into super-packets sharing one camera center
    (`group_size`); a first-order per-event shift (`_sweep_correction`) keeps
@@ -21,11 +21,22 @@ Port of the kernel-engine path of dvs_mcemvs_tpu/ops/voting_hist.py (every
    segment or for the whole sweep (`_sweep_planes`).
 
 Histograms and merge levels are bf16 with f32 accumulation, or f32 with
-`dtype=torch.float32`.  The JAX package degrades a spec whose grid exceeds
-the TPU's scoped VMEM to its one-hot-matmul engine; the card has no such
-limit, so the port runs every spec on its kernels.  Border semantics diverge
-from the C++ reference as in the JAX package: partial bilinear taps at the
-image edge are kept.
+`dtype=torch.float32`.  Border semantics diverge from the C++ reference as
+in the JAX package: partial bilinear taps at the image edge are kept.
+
+The JAX package has two engines for the same binning, merge and sweep
+math (its voting_hist.py:611-613): its Pallas kernels (`engine="pallas"`,
+spec token "pl") and one-hot matmuls (`engine="xla"`, specs without "pl").
+The port runs both on kernels A and B, never building the one-hot tap
+matrices.  What the engine changes here is what it changes there: the
+Pallas engine rounds the histogram grid up to 64 rows and 128 columns,
+the one-hot engine keeps (H + 2 pad_y) ss x (W + 2 pad_x) ss, and only the
+Pallas engine has the butterfly merge.  The one-hot engine rounds its
+binning and resample taps, its y-stage sums and its histograms to bf16 at
+the kernels' points, but bins with f32 taps under `f32`, where kernel A
+keeps bf16 taps: a relative change below 2^-9 a tap.  The JAX package
+degrades a Pallas spec whose grid exceeds the TPU's scoped VMEM to its
+one-hot engine; the card has no such limit, so the port never does.
 """
 
 from __future__ import annotations
@@ -225,6 +236,10 @@ def merge_leaf_histograms(hist, centers, merge, u_mid, z0, vcam_params,
         centers, torch.repeat_interleave(centers_super, merge, dim=0), u_mid, z0,
         vcam_params, pad_x, pad_y, ss)
     s = m_s.reshape(P, merge)
+    # The scales are frame changes between camera centers millimetres apart,
+    # so they stay within 1e-3 of 1 on real rigs, inside the 0.8 bound
+    # (scale_min) under which both JAX engines take this resample; kernel B
+    # holds for any scale.
     out = banded_resample_sum(
         hist, s, bt_y.reshape(P, merge), s, bt_x.reshape(P, merge), out_h=hs_,
         out_w=ws_, blocked=True,
@@ -401,10 +416,12 @@ def splat_hist(
     correct: bool = True,
     segments: int = 1,
     bin_dtype: Optional[torch.dtype] = None,
+    engine: str = "xla",
     merge_mode: str = "flat",
 ) -> torch.Tensor:
     """Vote all packets into a (Z, H, W) float32 DSI by histogram + affine
-    resample on the kernels.
+    resample on the kernels, as the JAX package's `engine` ("xla" or
+    "pallas") does it.
 
     `group_size` packets share one camera center; `pad_x`/`pad_y` extend the
     z0 grid; `supersample` refines it; `dtype` (bf16 or float32) is the type
@@ -413,19 +430,22 @@ def splat_hist(
     correction.  `segments` > 1 splits the inverse-depth sweep into
     segments of equal plane counts and merges the leaf histograms per
     segment, flat (`merge_mode="flat"`) or by the
-    O(G log S) butterfly (`"butterfly"`, power-of-two segments); 1 sweeps
-    every plane over all leaves.  `plane_block` is accepted for the backend
-    signature and unused.
+    O(G log S) butterfly (`"butterfly"`, power-of-two segments, "pallas"
+    only); 1 sweeps every plane over all leaves.  `plane_block` is accepted
+    for the backend signature and unused.
     """
     del plane_block
+    if engine not in ("xla", "pallas"):
+        raise ValueError(f"engine must be 'xla' or 'pallas', got {engine!r}")
     fx, fy, cx, cy = vcam_params
     ss = supersample
     hs = (height + 2 * pad_y) * ss
     ws = (width + 2 * pad_x) * ss
-    # The JAX kernel engine's aligned grid (extra bins at the right/bottom
-    # edge are never mapped); kept so both packages bin on the same grid.
-    ws += -ws % 128
-    hs += -hs % 64
+    if engine == "pallas":
+        # The Pallas engine's aligned grid (extra bins at the right/bottom
+        # edge are never mapped); kept so both packages bin on the same grid.
+        ws += -ws % 128
+        hs += -hs % 64
     Z = depths.shape[0]
 
     u_all = 1.0 / depths
@@ -448,6 +468,9 @@ def splat_hist(
     # Equal plane counts; with segments <= Z no segment is empty.
     bounds = [round(s * Z / segments) for s in range(segments + 1)]
     if merge_mode == "butterfly":
+        if engine != "pallas":
+            raise ValueError("merge_mode='butterfly' needs the pallas engine (spec token "
+                             f"'pl'), got {engine!r}")
         hist_seg, centers_s = _merge_butterfly(
             hist, centers, depths, bounds, z0, vcam_params, pad_x, pad_y, ss, dtype)
         return _sweep_planes_fanin(
@@ -511,10 +534,10 @@ def make_hist_backend(group_size: int = 32, supersample: int = SUPERSAMPLE,
                       dtype: torch.dtype = torch.bfloat16, correct: bool = True,
                       segments: int = 1,
                       bin_dtype: Optional[torch.dtype] = None,
-                      merge_mode: str = "flat"):
+                      engine: str = "xla", merge_mode: str = "flat"):
     """A backend callable (the `splat_scatter` signature) with fixed knobs."""
     return functools.partial(
         splat_hist, group_size=group_size, supersample=supersample,
         pad_x=pad_x, pad_y=pad_y, dtype=dtype, correct=correct,
-        segments=segments, bin_dtype=bin_dtype,
+        segments=segments, bin_dtype=bin_dtype, engine=engine,
         merge_mode=merge_mode)

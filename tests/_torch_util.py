@@ -4,6 +4,8 @@ The suite runs on several xdist workers per host, so each worker caps its
 torch thread pool.  JAX and torch meet only through numpy arrays.
 """
 
+import os
+
 import numpy as np
 import torch
 
@@ -28,3 +30,36 @@ def assert_rel_close(got, want, rel: float, what: str = "") -> None:
     scale = max(float(np.abs(want).max()), 1e-30)
     err = float(np.abs(got - want).max()) / scale
     assert err <= rel, f"{what}: max error {err:.3g} of scale > {rel}"
+
+
+def _points(path):
+    pts = np.atleast_2d(np.loadtxt(path)).reshape(-1, 3)
+    return {(int(r[0]), int(r[1])): r[2] for r in pts}
+
+
+def assert_same_cli_artifacts(jdir: str, tdir: str) -> None:
+    """Two CLI output directories hold the same files; every depth map
+    agrees on >= 99 % of the pixels both masks keep, and each keeps >= 98 %
+    of the other's; every DSI dump within relative L1 1e-4; the same
+    run_flags.conf but for --out_path."""
+    files = sorted(os.listdir(jdir))
+    assert sorted(os.listdir(tdir)) == files
+    txts = [f for f in files if "depth_points" in f]
+    assert txts and any(f.endswith("depth_points_fused.txt") for f in txts)
+    for f in txts:
+        a, b = _points(os.path.join(jdir, f)), _points(os.path.join(tdir, f))
+        assert a, f"{f}: no depth points"
+        common = set(a) & set(b)
+        assert len(common) >= 0.98 * max(len(a), len(b)), f
+        same = np.mean([abs(a[c] - b[c]) <= 1e-4 * a[c] for c in common])
+        assert same >= 0.99, f"{f}: {same}"
+    npys = [f for f in files if f.endswith(".npy")]
+    assert npys
+    for f in npys:
+        a = np.load(os.path.join(jdir, f)).astype(np.float64)
+        b = np.load(os.path.join(tdir, f)).astype(np.float64)
+        assert b.shape == a.shape
+        assert np.abs(b - a).sum() / np.abs(a).sum() < 1e-4, f
+    flags = [[ln for ln in open(os.path.join(d, "run_flags.conf")).read().splitlines()
+              if not ln.startswith("--out_path=")] for d in (jdir, tdir)]
+    assert flags[1] == flags[0]

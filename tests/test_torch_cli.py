@@ -1,13 +1,16 @@
 """The PyTorch port's CLI (`python -m dvs_mcemvs_torch.cli`) against the JAX
 package's CLI on the esim fixture, both on the CPU under the exact scatter
 backend: the same files, the same depth maps, the same DSI dumps.  Each
-CLI configuration runs once per module."""
+CLI configuration runs once per module.  The same fixture from a ROS1 bag
+is tests/test_torch_rosbag.py's."""
 
+import glob
 import logging
 import os
 
 import numpy as np
 import pytest
+from _torch_util import assert_same_cli_artifacts
 
 from dvs_mcemvs_tpu import cli as jcli
 from dvs_mcemvs_tpu.utils import synthetic as jsynth
@@ -25,6 +28,10 @@ RUNS = {
     "fs": ["--process_method=1", "--full_seq", "--start_time_s=0", "--stop_time_s=1",
            "--duration=0.5", "--out_skip=0.4", "--nosave_pointcloud", "--save_dsi",
            "--save_workers=2"],
+    # Two of the focus-measure collapses (local variance, difference of
+    # Gaussians) in place of the argmax.
+    "c0": ["--process_method=1", "--collapse_method=0", "--save_dsi", "--nosave_pointcloud"],
+    "c4": ["--process_method=1", "--collapse_method=4", "--save_dsi", "--nosave_pointcloud"],
 }
 
 
@@ -58,36 +65,11 @@ def runs(fixture_dir):
     return out
 
 
-def _points(path):
-    pts = np.atleast_2d(np.loadtxt(path)).reshape(-1, 3)
-    return {(int(r[0]), int(r[1])): r[2] for r in pts}
-
-
 @pytest.mark.parametrize("name", list(RUNS))
 def test_cli_writes_the_jax_artifacts(runs, name):
     """The same file set; every depth map agrees on >= 99 % of the pixels
     both masks keep; every DSI dump within relative L1 1e-4."""
-    jdir, tdir = runs[name]
-    files = sorted(os.listdir(jdir))
-    assert sorted(os.listdir(tdir)) == files
-    txts = [f for f in files if "depth_points" in f]
-    assert txts and any(f.endswith("depth_points_fused.txt") for f in txts)
-    for f in txts:
-        a, b = _points(os.path.join(jdir, f)), _points(os.path.join(tdir, f))
-        common = set(a) & set(b)
-        assert len(common) >= 0.98 * max(len(a), len(b)), f
-        same = np.mean([abs(a[c] - b[c]) <= 1e-4 * a[c] for c in common])
-        assert same >= 0.99, f"{f}: {same}"
-    npys = [f for f in files if f.endswith(".npy")]
-    assert npys
-    for f in npys:
-        a = np.load(os.path.join(jdir, f)).astype(np.float64)
-        b = np.load(os.path.join(tdir, f)).astype(np.float64)
-        assert b.shape == a.shape
-        assert np.abs(b - a).sum() / np.abs(a).sum() < 1e-4, f
-    flags = [[ln for ln in open(os.path.join(d, "run_flags.conf")).read().splitlines()
-              if not ln.startswith("--out_path=")] for d in (jdir, tdir)]
-    assert flags[1] == flags[0]
+    assert_same_cli_artifacts(*runs[name])
 
 
 def test_cli_depth_on_the_planes(runs):
@@ -222,15 +204,29 @@ def test_cli_event_store_failure_fails_the_run(fixture_dir, tmp_path, monkeypatc
     (["--coordinator=localhost:1234"], "item 6"),
     (["--num_processes=2"], "item 6"),
     (["--process_id=0"], "item 6"),
-    (["--bag_filename_left=run.bag"], "item 3"),
-    (["--bag_filename=run.bag"], "item 3"),
-    (["--collapse_method=0"], "item 2"),
-    (["--collapse_method=4"], "item 2"),
 ])
 def test_cli_refuses_what_is_not_ported(fixture_dir, tmp_path, extra, item):
     _, paths = fixture_dir
     with pytest.raises(ValueError, match=f"ROADMAP Queue 1 {item}"):
         tcli.main(_args(paths, str(tmp_path / "o"), extra))
+
+
+PRESETS = sorted(glob.glob(os.path.join(REPO, "configs", "**", "*.conf"), recursive=True))
+
+
+@pytest.mark.parametrize("preset", PRESETS,
+                         ids=[os.path.relpath(p, os.path.join(REPO, "configs")) for p in PRESETS])
+def test_every_preset_is_ported(preset):
+    """Every preset of configs/ (44 of them read ROS1 bags) parses as the JAX
+    CLI parses it and passes the port's check: the one refusal left is
+    more than one device or process."""
+    from dvs_mcemvs_tpu import config as jconfig
+    from dvs_mcemvs_torch import config as tconfig
+
+    argv = [f"--flagfile={preset}"]
+    cfg = tconfig.parse_args(argv)
+    assert tconfig.config_to_flagfile(cfg) == jconfig.config_to_flagfile(jconfig.parse_args(argv))
+    tcli.check_ported(cfg)
 
 
 def test_cli_refuses_unknown_platform(fixture_dir, tmp_path):

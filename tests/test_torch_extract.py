@@ -102,3 +102,97 @@ def test_conv2d_same_borders(border):
     np.testing.assert_allclose(
         to_np(tgrid.sep_conv2d_same(torch.as_tensor(img), g, g, border)),
         np.asarray(jgrid.sep_conv2d_same(jnp.asarray(img), g, g, border)), rtol=1e-6, atol=1e-4)
+
+
+@pytest.mark.parametrize("name,args", [
+    ("gaussian_blur", (0.5,)), ("gaussian_blur", (0.8,)), ("sobel_grad_mag_sq", ()),
+    ("laplacian5", ()), ("box_mean", (2,)),
+])
+def test_2d_filters_match_jax(name, args):
+    img = _dsi("peaks")[:4]
+    want = np.asarray(getattr(jgrid, name)(jnp.asarray(img), *args))
+    got = to_np(getattr(tgrid, name)(torch.as_tensor(img), *args))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6 * float(np.abs(want).max()))
+    for sigma in (0.5, 0.8, 1.3):
+        assert tgrid.gaussian_ksize_from_sigma(sigma) == jgrid.gaussian_ksize_from_sigma(sigma)
+
+
+@pytest.mark.parametrize("method", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("kind", ["peaks", "ties"])
+def test_focus_collapse_matches_jax(method, kind):
+    """Confidence within rtol 1e-5, atol 1e-6; depth indices equal but where
+    the best two focus values are within 1e-5 of each other (a near-tie the
+    f32 rounding of the filters may flip), at most 0.1 % of the pixels."""
+    dsi = _dsi(kind)
+    jc, ji = jgrid.collapse(jnp.asarray(dsi), method)
+    tc, ti = tgrid.collapse(torch.as_tensor(dsi), method)
+    np.testing.assert_allclose(to_np(tc), np.asarray(jc), rtol=1e-5, atol=1e-6)
+    assert ti.dtype == torch.int32
+    differ = to_np(ti) != np.asarray(ji)
+    if differ.any():
+        focus = {0: lambda d: np.maximum(
+                     np.asarray(jgrid.gaussian_blur(d * d, 0.5))
+                     - np.asarray(jgrid.gaussian_blur(d, 0.5)) ** 2, 0),
+                 1: lambda d: np.asarray(jgrid.gaussian_blur(d * d, 0.5)),
+                 2: lambda d: np.asarray(jgrid.box_mean(jgrid.sobel_grad_mag_sq(d), 2)),
+                 3: lambda d: np.asarray(jgrid.laplacian5(d)) ** 2,
+                 4: lambda d: np.abs(np.asarray(jgrid.gaussian_blur(d, 0.5))
+                                     - np.asarray(jgrid.gaussian_blur(d, 0.8)))}[method]
+        top2 = np.sort(focus(jnp.asarray(dsi)), axis=0)[-2:]
+        near_tie = top2[1] - top2[0] <= 1e-5 * np.abs(top2[1])
+        assert near_tie[differ].all()
+        assert differ.mean() <= 1e-3
+
+
+@pytest.mark.parametrize("method", [0, 2, 4])
+def test_extraction_chain_with_focus_collapse_matches_jax(method):
+    dsi = _dsi("peaks")
+    jopt = jex.DepthMapOptions(collapse_method=method)
+    topt = tex.DepthMapOptions(collapse_method=method)
+    want = jex.get_depth_map_from_dsi(jnp.asarray(dsi),
+                                      jdv.DepthVector(jdv.INVERSE, 4.0, 24.0, Z), jopt)
+    got = tex.get_depth_map_from_dsi(torch.as_tensor(dsi),
+                                     tdv.DepthVector(tdv.INVERSE, 4.0, 24.0, Z), topt)
+    np.testing.assert_array_equal(to_np(got.depth_indices), np.asarray(want.depth_indices))
+    np.testing.assert_array_equal(to_np(got.mask), np.asarray(want.mask))
+
+
+@pytest.mark.parametrize("levels", [300, None])
+@pytest.mark.parametrize("patch", [3, 5, 9])
+def test_median_above_256_levels_matches_jax(levels, patch):
+    """The gather + sort median (more than 256 levels, or any float input):
+    exact."""
+    rng = np.random.default_rng(24)
+    img = rng.integers(0, 300, (H, W)).astype(np.float32)
+    if levels is None:
+        img += rng.uniform(0, 1, img.shape).astype(np.float32)
+    mask = (rng.uniform(size=(H, W)) > 0.6).astype(np.uint8)
+    want = np.asarray(jex.masked_median_filter(jnp.asarray(img), jnp.asarray(mask), patch, levels))
+    got = to_np(tex.masked_median_filter(torch.as_tensor(img), torch.as_tensor(mask), patch,
+                                         levels))
+    np.testing.assert_array_equal(got, want)
+    want_u8 = np.asarray(jex.masked_median_filter_u8(jnp.asarray(img), jnp.asarray(mask), patch,
+                                                     levels=300))
+    got_u8 = tex.masked_median_filter_u8(torch.as_tensor(img), torch.as_tensor(mask), patch,
+                                         levels=300)
+    assert got_u8.dtype == torch.int32
+    np.testing.assert_array_equal(to_np(got_u8), want_u8)
+
+
+def test_extraction_chain_above_256_planes_matches_jax():
+    """A 300-plane DSI: the extraction's median takes the sort path."""
+    rng = np.random.default_rng(25)
+    z = 300
+    z_true = np.linspace(10, z - 10, W)[None, :] + 3 * np.sin(np.arange(H))[:, None]
+    zz = np.arange(z)[:, None, None]
+    dsi = (40 * np.exp(-0.5 * ((zz - z_true[None]) / 4) ** 2)
+           + rng.gamma(2.0, 3.0, (z, H, W))).astype(np.float32)
+    want = jex.get_depth_map_from_dsi(jnp.asarray(dsi),
+                                      jdv.DepthVector(jdv.INVERSE, 1.0, 6.5, z),
+                                      jex.DepthMapOptions())
+    got = tex.get_depth_map_from_dsi(torch.as_tensor(dsi),
+                                     tdv.DepthVector(tdv.INVERSE, 1.0, 6.5, z),
+                                     tex.DepthMapOptions())
+    np.testing.assert_array_equal(to_np(got.depth_indices), np.asarray(want.depth_indices))
+    np.testing.assert_array_equal(to_np(got.mask), np.asarray(want.mask))
+    assert int(to_np(got.depth_indices).max()) > 256

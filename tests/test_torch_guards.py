@@ -28,7 +28,7 @@ SLICE_MODULES = [
     "dvs_mcemvs_torch.utils.synthetic", "dvs_mcemvs_torch.utils.golden",
     "dvs_mcemvs_torch.ops.pointcloud", "dvs_mcemvs_torch.config",
     "dvs_mcemvs_torch.checkpoint", "dvs_mcemvs_torch.io", "dvs_mcemvs_torch.io.calib",
-    "dvs_mcemvs_torch.io.events", "dvs_mcemvs_torch.io.poses",
+    "dvs_mcemvs_torch.io.events", "dvs_mcemvs_torch.io.poses", "dvs_mcemvs_torch.io.rosbag1",
     "dvs_mcemvs_torch.io.outputs", "dvs_mcemvs_torch.io.evstore",
     "dvs_mcemvs_torch.utils.writers", "dvs_mcemvs_torch.eval",
     "dvs_mcemvs_torch.eval.metrics", "dvs_mcemvs_torch.eval.dsec", "dvs_mcemvs_torch.cli",
@@ -130,7 +130,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     cpu = torch.device("cpu")
     res = chip_smoke.kernel_phase(cpu, G=4, E=1024, hs=64, ws=128, hs_dense=56, Ho=48,
                                   Wo=64, Z=12, S=4, K_sweep=2, K_wide=32, probe_h=176,
-                                  probe_w=128, probe_g=4, iters=1, cap=(70_000, 4, 4, 8, 2))
+                                  probe_w=128, probe_g=4, iters=1, cap=(70_000, 4, 4, 8, 2),
+                                  small=(26, 34))
     assert set(res) == {"bin_events", "bin_events_int8", "bin_events_dense",
                         "banded_resample_sum", "banded_resample_fanin", "smem_copy",
                         "block_step", "hbm_stream", "dyn_slice"}
@@ -178,6 +179,30 @@ def test_chip_smoke_pipelines_rehearse_on_cpu(monkeypatch):
     assert seq["RAM"][0] == seq["event store"][0] and len(seq["RAM"][0]) == 9
     with pytest.raises(AssertionError, match="not launched"):
         chip_smoke.full_seq_phase(cpu, n_events=32768, runs=1, **size)
+
+
+def test_chip_smoke_presets_rehearse_on_cpu(monkeypatch, tmp_path):
+    """Phase 9 and phase 6's sort check at a tiny size on the CPU: the MVSEC
+    presets through the CLI on a bag (3 chunks each), the focus collapses
+    and a 300-plane chunk against themselves, `sort` against `scatter`; and
+    the presets refuse a run that launched no kernel."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    cpu = torch.device("cpu")
+    size = dict(n_events=16384, width=96, height=64, n_pts=2000)
+    workload = chip_smoke.build_workload(cpu, dim_z=20, **size)
+    assert all(l1 < 1e-6 for l1, _ in chip_smoke.sort_vs_scatter_phase(workload))
+    fused = chip_smoke.run_chunk(workload, "hist:g4,seg4,bf,pl")[0].fused_dsi
+    out = chip_smoke.collapse_phase(cpu, fused, workload[0][0], runs=1)
+    assert [equal for _, _, equal in out.values()] == [1.0] * 5
+    assert chip_smoke.deep_chunk_phase(cpu, workload, needed=())["launches"]["bin_events"] == 0
+    bag = dict(rig=chip_smoke.mvsec_rig(), n_pts=3000, n_samples=20,
+               extra=("--dimZ=20", "--out_skip=0.5"), min_chunks=3)
+    runs = chip_smoke.bag_phase(cpu, str(tmp_path / "a"), needed=(), **bag)
+    assert [r["chunks"] for r in runs.values()] == [3, 3]
+    with pytest.raises(AssertionError, match="not launched"):
+        chip_smoke.bag_phase(cpu, str(tmp_path / "b"), **bag)
 
 
 @pytest.mark.parametrize("entry", ["from_arrays", "golden_trajectories",

@@ -181,11 +181,21 @@ def test_h5_source_and_npz_writer_match_jax(tmp_path, stream):
                  jevents.read_events(str(tmp_path / "j.npz")))
 
 
-def test_bag_inputs_are_refused():
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 3"):
-        tevents.read_events("events.bag")
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 3"):
-        tposes.read_poses("poses.bag", device="cpu")
+def test_bag_inputs_match_jax(tmp_path):
+    """A bag's events need their topic (`read_events_rosbag`), as in the JAX
+    package; its poses read through `read_poses` as the JAX package's do."""
+    from dvs_mcemvs_torch.utils import synthetic as tsynth
+
+    for mod in (jevents, tevents):
+        with pytest.raises(ValueError, match="read_events_rosbag"):
+            mod.read_events("events.bag")
+    paths = tsynth.write_bag_fixture(str(tmp_path), n_pts=300, n_samples=4)
+    jo, to = jevents.TimeOrigin(), tevents.TimeOrigin()
+    want = jposes.read_poses(paths["bag"], topic=paths["pose_topic"], origin=jo)
+    got = tposes.read_poses(paths["bag"], topic=paths["pose_topic"], origin=to, device="cpu")
+    assert to.t0 == jo.t0 and got.ts.shape[0] == 51
+    np.testing.assert_array_equal(to_np(got.ts), np.asarray(want.ts))
+    np.testing.assert_array_equal(to_np(got.poses.t), np.asarray(want.poses.t))
 
 
 @pytest.mark.parametrize("fmt", ["tum", "npz_qp", "npz_T"])

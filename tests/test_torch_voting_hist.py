@@ -170,10 +170,12 @@ def test_headline_spec_is_literal():
     assert tvh.auto_backend_spec(0.5, 1024, 576.0, 2.0, 40.0, 100) == "hist:g16,seg16,bf,pl"
 
 
-# Specs the port does not run: the JAX package's other backends and, without
-# "pl", its one-hot-matmul engine (ROADMAP Queue 1 item 1); unknown tokens.
-@pytest.mark.parametrize("spec", ["sort", "hist", "hist_exact", "hist:g4,seg8,bf",
-                                  "hist:g4,ss2,seg5", "hist:g4,seg8,bf,pl,fast"])
-def test_resolve_backend_refuses_unported_specs(spec):
+# Specs the port does not run: the butterfly merge without the Pallas
+# engine ("pl"), as in the JAX package, and unknown tokens.  Each raises when
+# it is resolved or when it votes.
+@pytest.mark.parametrize("spec", ["hist:g4,seg8,bf", "hist:g4,seg8,bf,pl,fast"])
+def test_resolve_backend_refuses_unported_specs(rig_packets, spec):
+    packets, depths, vp, W, H = rig_packets
     with pytest.raises(ValueError):
-        tvoting.resolve_backend(spec)
+        tvoting.resolve_backend(spec)(convert.packets(packets[0], "cpu"),
+                                      torch.as_tensor(depths), float(depths[0]), vp, W, H)

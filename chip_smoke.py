@@ -3,8 +3,8 @@
 CUDA kernels, checks each against its plain PyTorch version at the main
 path's shapes, drives the two-camera process_1 chunk at the headline size
 through the kernels under every voting backend and histogram spec form,
-gates the BENCH16 golden fixture, and runs the CLI on presets from a ROS1
-bag.
+gates the BENCH16 golden fixture, runs the CLI on presets from a ROS1
+bag, and drives the sharded step and the CLI on more than one rank.
 
     python3 chip_smoke.py        # needs one CUDA device and nvcc
 
@@ -53,6 +53,18 @@ Phases (each raises on failure, so the script exits non-zero):
                 on the headline fused DSI, the card against the CPU; one
                 process_1 chunk of phase 4's events at 300 planes (the
                 sort-path median) against the CPU's extraction.
+ 10. distributed -- the sharded step (dvs_mcemvs_torch.parallel) on the
+                headline chunk, against phase 4's process_1 + get_depth_map
+                (fused-DSI relative L1 < 1e-3, vote mass within 1e-3, depth
+                indices equal on >= 99.9 % of the pixels, kernels A and B
+                launched from the shard body): (a) one rank over NCCL;
+                (b) two spawned ranks sharing the card over gloo, on meshes
+                (2, 1) (event shards) and (1, 2) (plane shards, 50 planes a
+                rank, held per plane block), with the time of the staged
+                all-reduce of a fused-DSI-sized tensor; (c) the CLI as two
+                processes (--coordinator, --num_processes=2, --process_id) on
+                the esim fixture under process_method 1 and 2, against the
+                same run in one process.
 Each phase logs its seconds; the line before the two result lines gives
 the total and each phase's share.
 Phase 3 also holds kernels A and B against their plain versions past the
@@ -159,6 +171,20 @@ PRESET_MIN_CHUNKS = 10
 PLANE_DIST_M = 0.2
 COLLAPSE_RTOL, COLLAPSE_EQUAL = 1e-4, 0.999
 DEEP_Z = 300
+
+# Phase 10: the sharded step against process_1 on the headline chunk:
+# fused-DSI relative L1, vote mass, share of pixels with equal depth indices
+# (per plane block under plane shards); median of DIST_RUNS chunks after a
+# warm-up; the meshes of two ranks sharing one device.  The CLI's two
+# processes run the esim fixture cut to CLI_PACKETS packets of PACKET_CLI
+# events a camera.
+DIST_L1, DIST_MASS, DIST_EQUAL = 1e-3, 1e-3, 0.999
+DIST_RUNS = 3
+# Each mesh of two ranks with the kernels it must reach: under plane
+# shards a z-block holds half the butterfly's segments, and a block with an
+# empty segment sweeps segment by segment on the sum wrapper, not the fan-in.
+DIST_MESHES = {(2, 1): KERNELS_A_B, (1, 2): ("bin_events", "banded_resample_sum")}
+CLI_PACKETS, PACKET_CLI = 64, 1024
 
 # The least time for a kernel's work on an H100 SXM (NVIDIA's data sheet):
 # its bytes (each input read once, each output written once) over the HBM3
@@ -1526,6 +1552,265 @@ def deep_chunk_phase(dev, workload, dim_z=DEEP_Z, needed=KERNELS_A_B) -> dict:
     return dict(seconds=seconds, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the distributed path (dvs_mcemvs_torch.parallel and the CLI's ranks)
+# ---------------------------------------------------------------------------
+
+
+def sharded_chunk(workload, mesh, step):
+    """The headline chunk through this rank's sharded `step` on `mesh`: the
+    padded inputs, this rank's event block, the step; synchronised."""
+    from dvs_mcemvs_torch import mapper as mappermod, pipeline
+    from dvs_mcemvs_torch.parallel import sharded
+
+    mappers, events, trajs, _ = workload
+    n_event = mesh.size(0)
+    T_rv_w = pipeline.place_reference_view(trajs[0], 0.5)
+    cap = mappermod.bucket_capacity(max(e.num for e in events), n_event * PACKET)
+    args = sharded.sharded_step_inputs(mappers, events, trajs, T_rv_w, n_event, PACKET,
+                                       capacity=cap)
+    out = step(*sharded.local_inputs(mesh, args))
+    _sync(out["dsi"].device)
+    return out
+
+
+def make_headline_step(workload, mesh, spec=HEADLINE_SPEC):
+    from dvs_mcemvs_torch.parallel import sharded
+
+    cfg = sharded.ShardedStepConfig(fusion_method=2, packet_size=PACKET, backend=spec)
+    return sharded.make_sharded_step(mesh, sharded.rig_spec_from_mappers(workload[0]), cfg)
+
+
+def compare_sharded(what, out, mesh, ref_dsi, ref_idx) -> dict:
+    """This rank's block of the fused DSI against the same planes of
+    process_1's (relative L1, vote mass) and its depth indices against
+    process_1 + get_depth_map's; raises beyond DIST_L1, DIST_MASS,
+    DIST_EQUAL."""
+    n_plane = mesh.size(1)
+    zb = ref_dsi.shape[0] // n_plane
+    pi = mesh.get_local_rank("plane")
+    want = ref_dsi[pi * zb:(pi + 1) * zb].double()
+    got = out["dsi"].double()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: DSI block {tuple(got.shape)} or not finite")
+    l1 = float((got - want).abs().sum() / want.abs().sum())
+    mass = float(got.sum() / want.sum()) - 1.0
+    equal = float((out["depth_indices"] == ref_idx).double().mean())
+    log(f"  {what}: planes {pi * zb}-{(pi + 1) * zb - 1}: fused-DSI relative L1 {l1:.3g}, "
+        f"mass {mass:+.3g}, depth indices equal on {equal:.5f} of the pixels (limits "
+        f"{DIST_L1:g}, {DIST_MASS:g}, {DIST_EQUAL:g})")
+    if l1 >= DIST_L1 or abs(mass) >= DIST_MASS or equal < DIST_EQUAL:
+        raise AssertionError(f"{what}: the sharded chunk disagrees with process_1")
+    return dict(l1=l1, mass=mass, equal=equal)
+
+
+def timed_sharded(dev, what, workload, mesh, step, runs, needed=KERNELS_A_B):
+    """One counted sharded chunk (launches from zero), then the median
+    seconds of `runs` more.  Returns (first output, launches, median)."""
+    zero_counts()
+    out = sharded_chunk(workload, mesh, step)
+    counts = read_counts()
+    launches = {n: counts[n] for n in KERNELS_A_B}
+    _check_launched(what, launches, needed)
+    median, seconds = median_seconds(lambda: sharded_chunk(workload, mesh, step), runs)
+    log(f"  {what}: launches {launches}; seconds a chunk (median of {runs} after a warm-up) "
+        f"{median:.6f} [{', '.join(f'{t:.6f}' for t in seconds)}]")
+    return out, launches, median
+
+
+def _dist_rank(rank, world, coordinator, out_dir, dev_name, size, spec, runs, needed):
+    """Phase 10 (b), one rank of two sharing the card: the headline chunk on
+    meshes DIST_MESHES against process_1 on the same card, and the
+    all-reduce of one fused-DSI-sized tensor over the event group."""
+    import torch.distributed as dist
+
+    from dvs_mcemvs_torch.parallel import mesh as meshmod
+
+    dev = torch.device(dev_name)
+    meshmod.init_distributed(coordinator, world, rank, dev)
+    try:
+        workload = build_workload(dev, **size)
+        ref, dm = run_chunk(workload, spec)
+        result = {"backend": dist.get_backend()}
+        for shape, mesh_needs in DIST_MESHES.items():
+            name = f"{shape[0]}x{shape[1]}"
+            mesh = meshmod.make_mesh(*shape, device=dev)
+            what = f"rank {rank} of {world}, mesh {shape}"
+            out, launches, median = timed_sharded(
+                dev, what, workload, mesh, make_headline_step(workload, mesh, spec), runs,
+                tuple(n for n in mesh_needs if n in needed))
+            stats = compare_sharded(what, out, mesh, ref.fused_dsi, dm.depth_indices)
+            result[name] = dict(launches=launches, seconds=median, **stats)
+            if shape[0] > 1:
+                t = torch.ones_like(ref.fused_dsi)
+                group = mesh.get_group("event")
+
+                def reduce():
+                    dist.all_reduce(t, group=group)
+                    _sync(dev)
+
+                reduce()
+                med, secs = median_seconds(reduce, runs)
+                result["all_reduce_s"] = med
+                log(f"  rank {rank}: all_reduce of a {tuple(t.shape)} f32 DSI over "
+                    f"{result['backend']}: median {med:.6f} s [{', '.join(f'{x:.6f}' for x in secs)}]")
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        meshmod.shutdown_distributed()
+
+
+def truncate_fixture(paths, packets):
+    """Cut each camera's events of a written fixture to `packets` packets
+    (a power of two: the processes' slices and their groups then line up
+    with one process's)."""
+    from dvs_mcemvs_torch.io import events as eventsmod
+
+    for key in ("events0", "events1"):
+        ev = eventsmod.read_events(paths[key])
+        if ev.num < packets * PACKET_CLI:
+            raise AssertionError(f"{key}: {ev.num} events < {packets} packets")
+        eventsmod.write_events_npz(paths[key], ev.slice(0, packets * PACKET_CLI))
+
+
+def cli_depth_indices(dsi_path, argv):
+    """The filtered depth indices that the CLI run of `argv` extracts from
+    the fused DSI it saved at `dsi_path`."""
+    from dvs_mcemvs_torch.config import parse_args
+    from dvs_mcemvs_torch.ops import extract
+    from dvs_mcemvs_torch.ops.depth_vector import DepthVector
+
+    cfg = parse_args(argv)
+    opts = extract.DepthMapOptions(
+        adaptive_threshold_kernel_size=cfg.adaptive_threshold_kernel_size,
+        adaptive_threshold_c=cfg.adaptive_threshold_c,
+        median_filter_size=cfg.median_filter_size, max_confidence=cfg.max_confidence,
+        collapse_method=cfg.collapse_method)
+    dv = DepthVector(cfg.depth_sampling, cfg.min_depth, cfg.max_depth, cfg.dimZ)
+    dsi = torch.as_tensor(np.load(dsi_path))
+    return extract.get_depth_map_from_dsi(dsi, dv, opts).depth_indices
+
+
+def cli_ranks_phase(dev, workdir, timeout=300) -> dict:
+    """Phase 10 (c): `python -m dvs_mcemvs_torch.cli` as two processes
+    (--coordinator, --num_processes=2, --process_id) on the esim fixture
+    under process_method 1 and 2, against the same run in one process: rank
+    0's fused depth within PLANE_DIST_M of the planes, and the depth indices
+    that the CLI's extraction takes from its fused DSI equal to the
+    one-process run's on DIST_EQUAL of the pixels."""
+    import signal
+
+    from dvs_mcemvs_torch import cli
+    from dvs_mcemvs_torch.parallel.mesh import free_port
+    from dvs_mcemvs_torch.utils import synthetic
+
+    paths = synthetic.write_fixture(os.path.join(workdir, "data"),
+                                    rig=synthetic.esim_like_rig(travel=0.4))
+    truncate_fixture(paths, CLI_PACKETS)
+    platform = "cuda" if dev.type == "cuda" else "cpu"
+    base = [f"--flagfile={os.path.join(HERE, 'configs', 'synthetic', 'esim_stereo.conf')}",
+            f"--bag_filename_left={paths['events0']}",
+            f"--bag_filename_right={paths['events1']}",
+            f"--bag_filename_pose={paths['poses']}", f"--platform={platform}",
+            f"--packet_size={PACKET_CLI}", "--save_dsi", "--nosave_pointcloud"]
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = {}
+    for pm, extra in ((1, ["--process_method=1"]),
+                      (2, ["--process_method=2", "--num_intervals=2"])):
+        one = os.path.join(workdir, f"one_p{pm}")
+        t0 = time.perf_counter()
+        if cli.main(base + extra + [f"--out_path={one}/"]) != 0:
+            raise AssertionError(f"cli process_{pm}: the one-process run failed")
+        t_one = time.perf_counter() - t0
+        two = os.path.join(workdir, f"two_p{pm}")
+        port = free_port()
+        logs, procs = [], []
+        t0 = time.perf_counter()
+        for rank in range(2):
+            logs.append(os.path.join(workdir, f"p{pm}_rank{rank}.log"))
+            with open(logs[-1], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "dvs_mcemvs_torch.cli", *base, *extra,
+                     f"--out_path={two}/", f"--coordinator=127.0.0.1:{port}",
+                     "--num_processes=2", f"--process_id={rank}"],
+                    cwd=HERE, env=env, stdout=f, stderr=subprocess.STDOUT,
+                    start_new_session=True))
+        deadline = time.monotonic() + timeout
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=30)
+        t_two = time.perf_counter() - t0
+        text = [open(path).read() for path in logs]
+        if any(proc.returncode != 0 for proc in procs):
+            raise AssertionError(f"cli process_{pm} on two processes: exits "
+                                 f"{[proc.returncode for proc in procs]}\n{text[0][-3000:]}\n"
+                                 f"{text[1][-3000:]}")
+        backend = [ln.rsplit("backend ", 1)[1] for ln in text[0].splitlines()
+                   if "dvs_mcemvs_torch.parallel.mesh" in ln and "backend" in ln]
+        fused = [f for f in os.listdir(two) if f.endswith("depth_points_fused.txt")]
+        dist_m = _plane_distance(os.path.join(two, fused[0]))
+        a, b = (cli_depth_indices(os.path.join(d, "dsi_fused.npy"), base + extra)
+                for d in (one, two))
+        equal = float((a == b).double().mean())
+        log(f"  cli process_{pm}, two processes on one {platform} device: backend "
+            f"{backend}, {t_two:.3f} s (one process in this one: {t_one:.3f} s); fused depth "
+            f"median distance to the planes {dist_m:.4f} m; depth indices equal to the "
+            f"one-process run's on {equal:.5f} of the pixels")
+        if dist_m >= PLANE_DIST_M or equal < DIST_EQUAL:
+            raise AssertionError(f"cli process_{pm} on two processes: distance {dist_m}, "
+                                 f"equal {equal}")
+        out[pm] = dict(seconds=t_two, equal=equal, distance=dist_m)
+    return out
+
+
+def distributed_phase(dev, workload, spec=HEADLINE_SPEC, runs=DIST_RUNS, rank_size=None,
+                      needed=KERNELS_A_B, smi="") -> dict:
+    """Phase 10: (a) the sharded step at world size 1 (NCCL on the card) on
+    the headline chunk against phase 4's process_1; (b) two ranks sharing
+    this device (gloo) on meshes (2, 1) and (1, 2); (c) the CLI as two
+    processes.  Returns what each part measured."""
+    import torch.distributed as dist
+
+    from dvs_mcemvs_torch.parallel import mesh as meshmod
+
+    ref, dm = run_chunk(workload, spec)
+    meshmod.init_distributed(f"127.0.0.1:{meshmod.free_port()}", 1, 0, dev)
+    try:
+        backend = dist.get_backend()
+        mesh = meshmod.make_mesh(1, 1, device=dev)
+        what = f"(a) one rank over {backend}, mesh (1, 1), {spec}"
+        out, launches, median = timed_sharded(dev, what, workload, mesh,
+                                               make_headline_step(workload, mesh, spec), runs,
+                                               needed)
+        stats = compare_sharded(what, out, mesh, ref.fused_dsi, dm.depth_indices)
+    finally:
+        meshmod.shutdown_distributed()
+    _, seconds = median_seconds(lambda: run_chunk(workload, spec), runs)
+    log(f"  process_1 + get_depth_map on the same chunk: median {np.median(seconds):.6f} s; "
+        f"{smi}")
+    res = {"a": dict(backend=backend, launches=launches, seconds=median, **stats)}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as out_dir:
+        t0 = time.perf_counter()
+        meshmod.spawn_ranks(_dist_rank, 2, (out_dir, str(dev), rank_size or {}, spec, runs,
+                                           needed), timeout=600)
+        ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(2)]
+    log(f"  (b) two ranks on one device over {ranks[0]['backend']}: {time.perf_counter() - t0:.1f} s "
+        f"with start-up; seconds a chunk, rank 0: " + ", ".join(
+            f"mesh {name} {ranks[0][name]['seconds']:.6f}" for name in ("2x1", "1x2")))
+    res["b"] = ranks
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_ranks_") as workdir:
+        res["c"] = cli_ranks_phase(dev, workdir)
+    return res
+
+
 def optional_modules() -> str:
     """Which of the optional host packages import here."""
     import importlib
@@ -1560,7 +1845,7 @@ def main() -> int:
             log(f"  phase {len(marks)} in {marks[-1]:.1f} s")
         if title:
             marks.append(now)
-            log(f"[{len(marks)}/9] {title}")
+            log(f"[{len(marks)}/10] {title}")
 
     dev = require_cuda()
     smi = nvidia_smi_line()
@@ -1626,6 +1911,10 @@ def main() -> int:
     log("  focus collapses on the headline chunk's fused DSI, the card against the CPU")
     collapse_phase(dev, fused_cpu, workload[0][0])
     deep_chunk_phase(dev, workload)
+
+    phase(f"distributed: one rank over NCCL, two ranks sharing the card, the CLI as two "
+          f"processes; {smi}")
+    distributed_phase(dev, workload, smi=smi)
     phase()
 
     binning_src = "dvs_mcemvs_torch/csrc/binning.cu"

@@ -8,8 +8,8 @@ completed chunk (plus a config fingerprint so stale ledgers are never
 reused), and the scheduler skips completed chunks on resume.
 
 Port of dvs_mcemvs_tpu/checkpoint.py (host-side, copied so the port imports
-nothing of the JAX package), less `sync_multihost`, which waits for the
-multi-process CLI (ROADMAP Queue 1 item 6).
+nothing of the JAX package); `sync_multihost` broadcasts rank 0's ledger
+over torch.distributed.
 """
 
 from __future__ import annotations
@@ -21,6 +21,8 @@ import logging
 import os
 import tempfile
 from typing import Dict, Optional, Set
+
+import torch.distributed as dist
 
 log = logging.getLogger(__name__)
 
@@ -114,3 +116,23 @@ class RunCheckpoint:
     @property
     def num_done(self) -> int:
         return len(self._done)
+
+
+def sync_multihost(ckpt: RunCheckpoint) -> None:
+    """Align resume decisions across the ranks of a multi-rank run.
+
+    Every rank must skip the same chunks, or the per-chunk collectives of
+    the sharded step pair up wrongly or hang: rank 0 (whose out_path holds
+    the real ledger) would skip a completed chunk while its peers, whose
+    outputs go to fresh scratch directories with no ledger, still vote it.
+    Rank 0's done-set is broadcast and replaces every peer's before the
+    chunk loop starts; peers still write their scratch ledgers.  Every rank
+    of the group calls it; no-op without a group of more than one rank.
+    """
+    if not dist.is_initialized() or dist.get_world_size() <= 1:
+        return
+    done = [sorted(ckpt._done)]
+    dist.broadcast_object_list(done, src=0)
+    ckpt._done = set(done[0])
+    if dist.get_rank() != 0:
+        log.info("resume sync: %d chunks done per rank 0's ledger", len(ckpt._done))

@@ -1,18 +1,27 @@
 """Command-line entry point -- the `run_emvs` equivalent, on PyTorch and the card.
 
-Port of dvs_mcemvs_tpu/cli.py for one process and one card: calibration
-dispatch, event/pose ingest, trajectory chaining through hand-eye and
-extrinsics, process selection (1/2/5), single-shot vs sliding-window
-scheduling with checkpoint resume, the native event store and the save
-worker pool, and the same artifacts.  Accepts the reference's own
+Port of dvs_mcemvs_tpu/cli.py: calibration dispatch, event/pose ingest,
+trajectory chaining through hand-eye and extrinsics, process selection
+(1/2/5), single-shot vs sliding-window scheduling with checkpoint resume,
+the native event store and the save worker pool, and the same artifacts,
+on one card or on a mesh of ranks.  Accepts the reference's own
 `--flagfile=<x>.conf` presets.
 
     python -m dvs_mcemvs_torch.cli --flagfile configs/example.conf
     python -m dvs_mcemvs_torch.cli --flagfile ... --platform=cpu   # the CPU
+    python -m dvs_mcemvs_torch.cli --flagfile ... --num_devices=4  # 4 ranks
+    python -m dvs_mcemvs_torch.cli --flagfile ... --coordinator=host0:29500 \
+        --num_processes=2 --process_id=$P                          # each process
 
 `--platform` '' or 'cuda' runs on the card and raises without one; 'cpu'
-runs on the CPU.  More than one device or process is not ported and is
-refused with a ValueError that names its ROADMAP item (Queue 1 item 6).
+runs on the CPU.  `--num_devices` N > 1 spawns N ranks on this host, one a
+card (gloo ranks on the CPU; 0 = every card, 1 on the CPU), each holding
+the whole chunk and voting its shard of the mesh.  `--coordinator`,
+`--num_processes` and `--process_id` make this process one rank of a
+multi-process run (missing values from MASTER_ADDR/MASTER_PORT, WORLD_SIZE,
+RANK), on the card at index process_id modulo the cards present, feeding
+only its slice of each chunk.  Rank 0's artifacts are the run's; the other
+ranks write into scratch directories that are removed at the end.
 """
 
 from __future__ import annotations
@@ -22,7 +31,9 @@ import dataclasses
 import logging
 import os
 import sys
+import tempfile
 import threading
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -41,24 +52,39 @@ from .ops.se3 import SE3
 log = logging.getLogger("dvs_mcemvs_torch")
 
 
-def resolve_device(platform: str) -> torch.device:
-    """The device `--platform` names: '' or 'cuda' the card (raising when
-    there is none), 'cpu' the CPU."""
+def resolve_device(platform: str, index: int = 0) -> torch.device:
+    """The device `--platform` names: '' or 'cuda' the card at `index`
+    (raising when there is none), 'cpu' the CPU."""
     if platform in ("", "cuda"):
-        return require_cuda()
+        require_cuda()
+        return torch.device("cuda", index)
     if platform == "cpu":
         return torch.device("cpu")
     raise ValueError(f"--platform must be '', 'cuda' or 'cpu', got {platform!r}")
 
 
-def check_ported(cfg: RunConfig) -> None:
-    """Raise on a configuration the port does not run, naming its ROADMAP
-    item; nothing degrades quietly."""
-    if cfg.num_devices > 1 or cfg.coordinator or cfg.num_processes > 0 \
-            or cfg.process_id >= 0:
-        raise ValueError("more than one device or process (--num_devices > 1, "
-                         "--coordinator, --num_processes, --process_id) is not ported "
-                         "(ROADMAP Queue 1 item 6)")
+def resolve_num_devices(n: int, device: torch.device) -> int:
+    """The ranks `--num_devices` = `n` asks for on this host: 0 means every
+    card (1 on the CPU); more than the cards present raises."""
+    if n < 0:
+        raise ValueError(f"--num_devices must be >= 0, got {n}")
+    if device.type == "cpu":
+        return n or 1
+    cards = torch.cuda.device_count()
+    if n > cards:
+        raise ValueError(f"--num_devices={n}, but {cards} card(s) are present")
+    return n or cards
+
+
+@dataclasses.dataclass(frozen=True)
+class Ranks:
+    """This process's place in a run of more than one rank.  `per_process`:
+    each rank feeds only its own slice of a chunk (the multi-process
+    launch); else every rank holds the whole chunk (`--num_devices`)."""
+
+    rank: int
+    world: int
+    per_process: bool
 
 
 def _se3_from_mat(T: np.ndarray, device) -> SE3:
@@ -134,9 +160,197 @@ def auto_spec(cfg: RunConfig, trajs, events, mapper: Mapper) -> str:
     return spec
 
 
+class _MeshFeed:
+    """The mesh of a multi-rank run and how a chunk's events reach it: under
+    `--num_devices` every rank pads the whole chunk and takes its event
+    shard; in a multi-process run each rank takes a quantum-aligned slice
+    of every camera's chunk (the sub-quantum tail, under world x quantum
+    events, is dropped, as the reference drops its last partial packet)."""
+
+    def __init__(self, cfg: RunConfig, backend: str, device: torch.device, ranks: Ranks):
+        from .parallel import mesh as meshmod
+
+        if ranks.per_process:
+            self.mesh = meshmod.global_mesh(cfg.dimZ, backend=backend, device=device)
+        else:
+            self.mesh = meshmod.make_mesh(
+                *meshmod.pick_mesh_shape(ranks.world, cfg.dimZ, backend=backend), device)
+        n_event = self.mesh.size(0)
+        self.cfg, self.ranks = cfg, ranks
+        self.quantum = (n_event // ranks.world if ranks.per_process else n_event) \
+            * cfg.packet_size
+        log.info("rank %d of %d: mesh (event=%d, plane=%d), backend %s, %s", ranks.rank,
+                 ranks.world, n_event, self.mesh.size(1), backend,
+                 "each rank feeds its slice" if ranks.per_process else "shards of the chunk")
+
+    def inputs(self, mappers, events, trajs, T_rv_w):
+        """(this rank's step arguments, events voted by all ranks), or None
+        when a camera's chunk is too small."""
+        from .mapper import bucket_capacity
+        from .parallel import sharded as shardedmod
+
+        packet, quantum, ranks = self.cfg.packet_size, self.quantum, self.ranks
+        if not ranks.per_process:
+            if min(e.num for e in events) <= packet:
+                return None
+            cap = bucket_capacity(max(e.num for e in events), quantum)
+            args = shardedmod.sharded_step_inputs(mappers, events, trajs, T_rv_w,
+                                                  self.mesh.size(0), packet, capacity=cap)
+            return shardedmod.local_inputs(self.mesh, args), sum(e.num for e in events)
+        if min(e.num for e in events) < ranks.world * quantum:
+            return None
+        local = []
+        for ev in events:
+            per = (ev.num // (ranks.world * quantum)) * quantum
+            local.append(ev.slice(ranks.rank * per, (ranks.rank + 1) * per))
+        # Slices are equal-sized by construction, so the capacity needs no
+        # all-gather.
+        cap = bucket_capacity(max(e.num for e in local), quantum)
+        args = shardedmod.sharded_step_inputs_multihost(
+            self.mesh, mappers, local, trajs, T_rv_w, packet, local_capacity=cap)
+        return args, sum(e.num for e in local) * ranks.world
+
+
+def _make_mesh_runner(cfg: RunConfig, mappers, opts, backend: str, feed: _MeshFeed):
+    """process_1 on the mesh: warp, voting, event all-reduce, fusion, the
+    collapse and the extraction in one sharded step, as a process callable
+    taking a `sync` flag (wait for the device, so the time is the device's)."""
+    from .parallel import sharded as shardedmod
+
+    step = shardedmod.make_sharded_step(
+        feed.mesh, shardedmod.rig_spec_from_mappers(mappers),
+        shardedmod.ShardedStepConfig(fusion_method=cfg.stereo_fusion,
+                                     packet_size=cfg.packet_size, backend=backend,
+                                     plane_block=cfg.plane_block, extract_options=opts))
+
+    def run_mesh(mps, evs, trs, ts, sync: bool) -> pipeline.ProcessResult:
+        t0 = time.perf_counter()
+        T_rv_w = pipeline.place_reference_view(trs[0], ts, cfg.rv_pos)
+        fed = feed.inputs(mps, evs, trs, T_rv_w)
+        if fed is None:
+            raise ValueError("chunk smaller than one packet (one quantum a rank)")
+        args, n_ev = fed
+        out = step(*args)
+        if sync and out["depth"].device.type == "cuda":
+            torch.cuda.synchronize(out["depth"].device)
+        dt = time.perf_counter() - t0
+        res = pipeline.ProcessResult(
+            fused_dsi=shardedmod.gather_planes(feed.mesh, out["dsi"]), T_rv_w=T_rv_w, ts=ts,
+            timings={"mesh_step_s": dt}, mev_per_s=(n_ev / dt / 1e6) if dt > 0 else None)
+        res.extracted = extract.DepthMapResult(
+            depth=out["depth"], confidence=out["confidence"], mask=out["mask"],
+            depth_dense=None, depth_indices=out["depth_indices"])
+        return res
+
+    return run_mesh
+
+
+def _make_mesh_pair_evaluator(cfg: RunConfig, mappers, backend: str, feed: _MeshFeed):
+    """process_2/5's `evaluate_pair` on the mesh: each sub-interval's two
+    camera DSIs voted by the sharded voting step and gathered whole on
+    every rank, so the temporal accumulators and the extraction run as on
+    one card."""
+    from .parallel import sharded as shardedmod
+
+    step = shardedmod.make_sharded_voting_step(
+        feed.mesh, shardedmod.rig_spec_from_mappers(mappers[:2]),
+        shardedmod.ShardedStepConfig(fusion_method=cfg.stereo_fusion,
+                                     packet_size=cfg.packet_size, backend=backend,
+                                     plane_block=cfg.plane_block))
+
+    def evaluate_pair(mps, evs, trs, T_rv_w):
+        fed = feed.inputs(mps[:2], evs, trs[:2], T_rv_w)
+        if fed is None:
+            return None, None
+        out = shardedmod.gather_planes(feed.mesh, step(*fed[0]), dim=1)
+        return out[0], out[1]
+
+    return evaluate_pair
+
+
+def _open_store_ranks(evstore, path: str, offset: float, origin):
+    """Open the streaming .evs cache in a multi-rank run: rank 0 builds it
+    next to the source while the others wait, then they open it (or build
+    their own where the file system is not shared).  A failed build fails
+    every rank; none falls back to RAM."""
+    import torch.distributed as dist
+
+    store, err = None, None
+    if dist.get_rank() == 0:
+        try:
+            store = evstore.NormalizedStore(evstore.open_or_build_h5(path), offset, origin)
+        except Exception as e:  # re-raised below, after the peers have heard of it
+            err = e
+    status = [None if err is None else f"{type(err).__name__}: {err}"]
+    dist.broadcast_object_list(status, src=0)
+    if err is not None:
+        raise err
+    if status[0] is not None:
+        raise RuntimeError(f"rank 0 could not build the event store of {path}: {status[0]}")
+    if store is None:
+        store = evstore.NormalizedStore(evstore.open_or_build_h5(path), offset, origin)
+    return store
+
+
+def _device_rank(rank: int, world: int, coordinator: str, cfg: RunConfig) -> None:
+    """One of `--num_devices`' ranks, in a spawned process."""
+    from .parallel.mesh import init_distributed, shutdown_distributed
+
+    logging.basicConfig(level=logging.INFO,
+                        format=f"%(asctime)s rank{rank} %(name)s %(levelname)s %(message)s")
+    device = resolve_device(cfg.platform, rank)
+    if device.type == "cpu":
+        # The ranks share the host's cores.
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    init_distributed(coordinator, world, rank, device)
+    try:
+        _run(cfg, device, Ranks(rank, world, per_process=False))
+    finally:
+        shutdown_distributed()
+
+
 def run(cfg: RunConfig) -> int:
-    check_ported(cfg)
+    """Run the CLI's configuration: on one device, as `--num_devices`
+    spawned ranks, or as one rank of a multi-process run."""
+    from .parallel.mesh import init_distributed, shutdown_distributed, spawn_ranks
+
     device = resolve_device(cfg.platform)
+    if cfg.coordinator or cfg.num_processes > 0 or cfg.process_id >= 0:
+        if cfg.num_devices > 1:
+            log.info("--num_devices=%d is not read in a multi-process run: one rank a "
+                     "process", cfg.num_devices)
+        rank, world = init_distributed(
+            cfg.coordinator or None, cfg.num_processes or None,
+            cfg.process_id if cfg.process_id >= 0 else None,
+            "cpu" if device.type == "cpu" else None)
+        try:
+            if device.type == "cuda":
+                device = torch.device("cuda", torch.cuda.current_device())
+            return _run(cfg, device, Ranks(rank, world, per_process=True) if world > 1
+                        else None)
+        finally:
+            shutdown_distributed()
+    n_dev = resolve_num_devices(cfg.num_devices, device)
+    if n_dev > 1:
+        log.info("spawning %d ranks (%s)", n_dev, device.type)
+        spawn_ranks(_device_rank, n_dev, (cfg,))
+        return 0
+    return _run(cfg, device, None)
+
+
+def _run(cfg: RunConfig, device: torch.device, ranks: Optional[Ranks]) -> int:
+    """The run on `device`, as rank `ranks` of a mesh (None: alone)."""
+    with contextlib.ExitStack() as scratch:
+        if ranks is not None and ranks.rank != 0:
+            # Every rank computes; rank 0's artifacts are the run's.
+            cfg = dataclasses.replace(cfg, out_path=scratch.enter_context(
+                tempfile.TemporaryDirectory(prefix=f"emvs_rank{ranks.rank}_")) + "/")
+            log.info("rank %d: outputs go to the scratch directory %s", ranks.rank,
+                     cfg.out_path)
+        return _run_on(cfg, device, ranks)
+
+
+def _run_on(cfg: RunConfig, device: torch.device, ranks: Optional[Ranks]) -> int:
     os.makedirs(cfg.out_path or ".", exist_ok=True)
     rig = calibmod.load_calibration(cfg.calib_type, cfg.calib_path, cfg.mocap_calib_path)
 
@@ -165,7 +379,11 @@ def run(cfg: RunConfig) -> int:
         if stream_ok and os.path.splitext(path)[1].lower() in (".h5", ".hdf5"):
             from .io import evstore
 
-            store = evstore.NormalizedStore(evstore.open_or_build_h5(path), offset, origin)
+            if ranks is not None:
+                store = _open_store_ranks(evstore, path, offset, origin)
+            else:
+                store = evstore.NormalizedStore(evstore.open_or_build_h5(path), offset,
+                                                origin)
             log.info("streaming event store for %s: %d events", path, store.count)
             return store
         window = dict(t_start=cfg.start_time_s, t_stop=cfg.stop_time_s, offset=offset,
@@ -212,6 +430,16 @@ def run(cfg: RunConfig) -> int:
     vopts = pipeline.VotingOptions(packet_size=cfg.packet_size, backend=backend,
                                    plane_block=cfg.plane_block)
 
+    # On a mesh, process_1 runs the sharded step and process_2/5 vote each
+    # sub-interval on the sharded voting step (parallel/sharded.py).
+    mesh_runner = mesh_pairs = None
+    if ranks is not None:
+        feed = _MeshFeed(cfg, backend, device, ranks)
+        if cfg.process_method == 1:
+            mesh_runner = _make_mesh_runner(cfg, mappers, opts, backend, feed)
+        else:
+            mesh_pairs = _make_mesh_pair_evaluator(cfg, mappers, backend, feed)
+
     n_calls = 0
 
     def run_process(mps, evs, trs, ts):
@@ -228,6 +456,8 @@ def run(cfg: RunConfig) -> int:
         return res
 
     def _process(mps, evs, trs, ts, vopts):
+        if mesh_runner is not None:
+            return mesh_runner(mps, evs, trs, ts, vopts.sync)
         if cfg.process_method == 1:
             return pipeline.process_1(mps, evs, trs, ts, cfg.stereo_fusion,
                                       rv_pos=cfg.rv_pos, vopts=vopts)
@@ -247,7 +477,8 @@ def run(cfg: RunConfig) -> int:
         fn = pipeline.process_2 if cfg.process_method == 2 else pipeline.process_5
         return fn(mps[:2], evs[:2], trs[:2], ts, stereo_fusion=cfg.stereo_fusion,
                   temporal_fusion=cfg.temporal_fusion, num_intervals=cfg.num_intervals,
-                  rv_pos=cfg.rv_pos, vopts=vopts, on_subinterval=on_sub)
+                  rv_pos=cfg.rv_pos, vopts=vopts, on_subinterval=on_sub,
+                  evaluate_pair=mesh_pairs)
 
     flag_text = config_to_flagfile(cfg)
     with open(os.path.join(cfg.out_path, "run_flags.conf"), "w") as f:
@@ -345,7 +576,7 @@ def _run_configured(cfg, mappers, events, trajs, opts, run_process, flag_text) -
 
 
 def _run_full_seq(cfg, mappers, events, trajs, opts, run_process, flag_text) -> int:
-    from .checkpoint import RunCheckpoint, config_fingerprint
+    from .checkpoint import RunCheckpoint, config_fingerprint, sync_multihost
 
     fopts = pipeline.FullSeqOptions(
         start_time=cfg.start_time_s, stop_time=cfg.stop_time_s,
@@ -355,6 +586,9 @@ def _run_full_seq(cfg, mappers, events, trajs, opts, run_process, flag_text) -> 
     # reaches process(): resume saves the voting, not only the writes.
     ckpt = RunCheckpoint(os.path.join(cfg.out_path, "checkpoint.json"),
                          fingerprint=config_fingerprint(flag_text), enabled=cfg.checkpoint)
+    # Every rank skips the chunks rank 0's ledger holds, or the sharded
+    # step's per-chunk collectives would pair up wrongly.
+    sync_multihost(ckpt)
     if all(not isinstance(s, Events) for s in events):
         # Streaming ingest already produced stores.
         runner = pipeline.run_full_seq_stores(mappers, events, trajs, fopts, run_process,

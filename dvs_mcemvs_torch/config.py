@@ -113,8 +113,7 @@ class RunConfig:
     checkpoint: bool = True               # full_seq chunk ledger + resume
     profile_dir: str = ""                 # torch.profiler chrome-trace output dir
     # Multi-process launch: every process runs the same CLI with the same
-    # flags plus its own --process_id (not ported: the CLI refuses these
-    # and --num_devices > 1, ROADMAP Queue 1 item 6).
+    # flags plus its own --process_id, one rank a process.
     coordinator: str = ""                 # host:port of process 0
     num_processes: int = 0                # total process count (0 = auto)
     process_id: int = -1                  # this process's index (-1 = auto)

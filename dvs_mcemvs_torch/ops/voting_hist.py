@@ -124,15 +124,18 @@ def build_group_histograms(
     dtype: torch.dtype = torch.bfloat16,
     correction: Optional[tuple] = None,
     out_dtype: Optional[torch.dtype] = None,
+    weights_binary: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bilinear-bin each super-packet's z0 locations on the binning kernel.
 
     `dtype` = torch.int8 bins with int8 taps; any other `dtype` (float32
     included) bins with bf16 taps, as the JAX package's kernels do.
     `correction` = (z0, fx, fy, cx, cy, u_mid) applies the first-order sweep
-    correction.  Events outside the padded grid are dropped.  Any hs: the
-    JAX package takes its dense kernel where hs % 64 != 0, the same kernel
-    here.  Returns (hist (G, hs, ws) in `out_dtype` (float32 by default),
+    correction.  `weights_binary` asserts that the packets' explicit
+    per-event weights are 0/1 (the sharded step's padding mask): the binning
+    then takes its binary-weight mode, which checks them.  Events outside the
+    padded grid are dropped.  Any hs: the JAX package takes its dense kernel
+    where hs % 64 != 0, the same kernel here.  Returns (hist (G, hs, ws) in `out_dtype` (float32 by default),
     centers (G, 3)).
     """
     K, P, _ = packets.xy_z0.shape
@@ -161,10 +164,11 @@ def build_group_histograms(
     w = torch.where(inb, w, torch.zeros_like(w))
     hx = torch.clamp(hx, 0.0, ws - 1).contiguous()
     hy = torch.clamp(hy, 0.0, hs - 1).contiguous()
-    # Without an explicit per-event weight the weights are validity and
-    # in-bounds masks only, so 0/1 -- which the binning wrapper checks.
+    # Without an explicit per-event weight (or with one the caller asserts
+    # 0/1) the weights are 0/1 masks -- which the binning wrapper checks.
     hist = bin_events(hx, hy, w.contiguous(), hs=hs, ws=ws,
-                      binary_w=packets.weight is None, int8=dtype == torch.int8,
+                      binary_w=packets.weight is None or weights_binary,
+                      int8=dtype == torch.int8,
                       out_dtype=out_dtype)
     return hist, centers
 
@@ -415,9 +419,12 @@ def splat_hist(
     dtype: torch.dtype = torch.bfloat16,
     correct: bool = True,
     segments: int = 1,
+    seg_bounds: Optional[Tuple[int, ...]] = None,
     bin_dtype: Optional[torch.dtype] = None,
     engine: str = "xla",
     merge_mode: str = "flat",
+    corr_u_mid=None,
+    weights_binary: bool = False,
 ) -> torch.Tensor:
     """Vote all packets into a (Z, H, W) float32 DSI by histogram + affine
     resample on the kernels, as the JAX package's `engine` ("xla" or
@@ -428,11 +435,21 @@ def splat_hist(
     of the histograms and merge levels, `bin_dtype` (torch.int8 for int8
     taps) overrides it for binning; `correct=False` drops the sweep
     correction.  `segments` > 1 splits the inverse-depth sweep into
-    segments of equal plane counts and merges the leaf histograms per
-    segment, flat (`merge_mode="flat"`) or by the
-    O(G log S) butterfly (`"butterfly"`, power-of-two segments, "pallas"
-    only); 1 sweeps every plane over all leaves.  `plane_block` is accepted
-    for the backend signature and unused.
+    segments and merges the leaf histograms per segment, flat
+    (`merge_mode="flat"`) or by the O(G log S) butterfly (`"butterfly"`,
+    power-of-two segments, "pallas" only); 1 sweeps every plane over all
+    leaves.  `seg_bounds` gives the segments' plane boundaries, a
+    (segments + 1)-tuple from 0 to Z (equal plane counts when None; see
+    `segment_bounds_equal_u`); a segment may be empty.  When `segments`
+    exceeds the planes present (a plane-sharded z-block) it is clamped and
+    the bounds fall back to equal counts.
+
+    The sharded step passes two more: `corr_u_mid`, the inverse depth at
+    which the sweep correction is exact (by default the midpoint of these
+    planes; a plane block passes the whole sweep's, so every block bins as
+    the single-device run does), and `weights_binary`, which asserts that
+    the packets' explicit weights are 0/1 (`build_group_histograms`).
+    `plane_block` is accepted for the backend signature and unused.
     """
     del plane_block
     if engine not in ("xla", "pallas"):
@@ -448,36 +465,52 @@ def splat_hist(
         hs += -hs % 64
     Z = depths.shape[0]
 
-    u_all = 1.0 / depths
-    u_mid = 0.5 * (torch.min(u_all) + torch.max(u_all))
-    corr = (z0, fx, fy, cx, cy, u_mid) if correct else None
+    if corr_u_mid is None:
+        u_all = 1.0 / depths
+        corr_u_mid = 0.5 * (torch.min(u_all) + torch.max(u_all))
+    corr = (z0, fx, fy, cx, cy, corr_u_mid) if correct else None
     hist, centers = build_group_histograms(
         packets, group_size, hs, ws, pad_x, pad_y, ss,
         dtype=bin_dtype if bin_dtype is not None else dtype,
-        correction=corr, out_dtype=dtype)
+        correction=corr, out_dtype=dtype, weights_binary=weights_binary)
 
     if segments > 1:
         # Clamp the segment count to the planes present (the butterfly's to
-        # a power of two).
-        segments = min(segments, Z)
+        # a power of two); clamped bounds are equal counts again.
+        eff = min(segments, Z)
         if merge_mode == "butterfly":
-            segments = 1 << (segments.bit_length() - 1)
+            eff = 1 << (eff.bit_length() - 1)
+        if eff != segments:
+            segments, seg_bounds = eff, None
     if segments <= 1:
         return _sweep_planes(hist, centers, depths, z0, vcam_params, width,
                              height, pad_x, pad_y, ss)
-    # Equal plane counts; with segments <= Z no segment is empty.
-    bounds = [round(s * Z / segments) for s in range(segments + 1)]
+    if seg_bounds is None:
+        bounds = [round(s * Z / segments) for s in range(segments + 1)]
+    else:
+        bounds = list(seg_bounds)
+        if len(bounds) != segments + 1 or bounds[0] != 0 or bounds[-1] != Z or any(
+                b1 < b0 for b0, b1 in zip(bounds, bounds[1:])):
+            raise ValueError(f"seg_bounds must rise from 0 to {Z} in {segments} steps, "
+                             f"got {seg_bounds}")
+    live = [s for s in range(segments) if bounds[s] < bounds[s + 1]]
     if merge_mode == "butterfly":
         if engine != "pallas":
             raise ValueError("merge_mode='butterfly' needs the pallas engine (spec token "
                              f"'pl'), got {engine!r}")
         hist_seg, centers_s = _merge_butterfly(
             hist, centers, depths, bounds, z0, vcam_params, pad_x, pad_y, ss, dtype)
-        return _sweep_planes_fanin(
-            hist_seg, centers_s, depths, bounds, z0, vcam_params,
-            width, height, pad_x, pad_y, ss)
+        if len(live) == segments:
+            return _sweep_planes_fanin(
+                hist_seg, centers_s, depths, bounds, z0, vcam_params,
+                width, height, pad_x, pad_y, ss)
+        # An empty segment: the fan-in's padded index rows need every
+        # segment to hold a plane, so each live one sweeps on its own.
+        return torch.cat([_sweep_planes(
+            hist_seg[s], centers_s, depths[bounds[s]:bounds[s + 1]], z0, vcam_params,
+            width, height, pad_x, pad_y, ss) for s in live])
     parts = []
-    for s in range(segments):
+    for s in live:
         dseg = depths[bounds[s]:bounds[s + 1]]
         useg = 1.0 / dseg
         hist_s, centers_s = merge_leaf_histograms(
@@ -533,11 +566,12 @@ def make_hist_backend(group_size: int = 32, supersample: int = SUPERSAMPLE,
                       pad_x: int = PAD_X, pad_y: int = PAD_Y,
                       dtype: torch.dtype = torch.bfloat16, correct: bool = True,
                       segments: int = 1,
+                      seg_bounds: Optional[Tuple[int, ...]] = None,
                       bin_dtype: Optional[torch.dtype] = None,
                       engine: str = "xla", merge_mode: str = "flat"):
     """A backend callable (the `splat_scatter` signature) with fixed knobs."""
     return functools.partial(
         splat_hist, group_size=group_size, supersample=supersample,
         pad_x=pad_x, pad_y=pad_y, dtype=dtype, correct=correct,
-        segments=segments, bin_dtype=bin_dtype, engine=engine,
-        merge_mode=merge_mode)
+        segments=segments, seg_bounds=seg_bounds, bin_dtype=bin_dtype,
+        engine=engine, merge_mode=merge_mode)

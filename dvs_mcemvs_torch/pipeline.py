@@ -10,8 +10,8 @@ work, over (Z, H, W) float32 DSIs on the trajectories' device.
   - `run_full_seq`, `run_full_seq_stores` -- the sliding-window chunk
                     scheduler over events held in RAM or in native stores.
 
-The sharded mesh step of the JAX package (its `evaluate_pair` hook) is not
-ported (ROADMAP Queue 1 item 6).
+The temporal pipelines take an `evaluate_pair` hook, through which the CLI
+votes each sub-interval on the sharded mesh step (`parallel.sharded`).
 """
 
 from __future__ import annotations
@@ -210,6 +210,7 @@ def process_time_fusion(
     rv_pos: float = 0.0,
     vopts: VotingOptions = VotingOptions(),
     on_subinterval: Optional[Callable[[int, Dict[str, torch.Tensor]], None]] = None,
+    evaluate_pair: Optional[Callable] = None,
 ) -> TemporalResult:
     """Algorithm 2: camera x time fusion with streaming accumulators.
 
@@ -221,6 +222,8 @@ def process_time_fusion(
     of at most one packet is skipped, and the accumulators are normalised by
     the count of sub-intervals that voted.  `on_subinterval(k, dsis)` sees
     each sub-interval's 'camera0', 'camera1' and 'fused' DSIs.
+    `evaluate_pair(mappers, [ev0, ev1], trajs, T_rv_w) -> (d0, d1)` replaces
+    the per-camera voting (None for a DSI marks the sub-interval too small).
     """
     if len(mappers) != 2:
         raise ValueError("time fusion is defined for stereo rigs (2 cameras)")
@@ -237,9 +240,13 @@ def process_time_fusion(
     n_live = 0
     t_start = time.perf_counter()
     for k in range(num_intervals):
-        (d0, d1), _, n_ev = _evaluate_all(mappers, [subs0[k], subs1[k]], trajs,
-                                          T_rv_w, vopts)
-        total_ev += n_ev
+        if evaluate_pair is not None:
+            d0, d1 = evaluate_pair(mappers, [subs0[k], subs1[k]], trajs, T_rv_w)
+            total_ev += subs0[k].num + subs1[k].num
+        else:
+            (d0, d1), _, n_ev = _evaluate_all(mappers, [subs0[k], subs1[k]], trajs,
+                                              T_rv_w, vopts)
+            total_ev += n_ev
         if d0 is None or d1 is None:
             log.warning("sub-interval %d too small, skipped", k)
             continue

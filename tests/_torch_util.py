@@ -37,11 +37,13 @@ def _points(path):
     return {(int(r[0]), int(r[1])): r[2] for r in pts}
 
 
-def assert_same_cli_artifacts(jdir: str, tdir: str) -> None:
+def assert_same_cli_artifacts(jdir: str, tdir: str, launch_flags: bool = False) -> None:
     """Two CLI output directories hold the same files; every depth map
     agrees on >= 99 % of the pixels both masks keep, and each keeps >= 98 %
     of the other's; every DSI dump within relative L1 1e-4; the same
-    run_flags.conf but for --out_path."""
+    run_flags.conf but for --out_path (and, with `launch_flags`, for the
+    flags that say how the run was launched: --num_devices, --coordinator,
+    --num_processes, --process_id)."""
     files = sorted(os.listdir(jdir))
     assert sorted(os.listdir(tdir)) == files
     txts = [f for f in files if "depth_points" in f]
@@ -60,6 +62,8 @@ def assert_same_cli_artifacts(jdir: str, tdir: str) -> None:
         b = np.load(os.path.join(tdir, f)).astype(np.float64)
         assert b.shape == a.shape
         assert np.abs(b - a).sum() / np.abs(a).sum() < 1e-4, f
+    skip = ("--out_path=",) + (("--num_devices=", "--coordinator=", "--num_processes=",
+                                 "--process_id=") if launch_flags else ())
     flags = [[ln for ln in open(os.path.join(d, "run_flags.conf")).read().splitlines()
-              if not ln.startswith("--out_path=")] for d in (jdir, tdir)]
+              if not ln.startswith(skip)] for d in (jdir, tdir)]
     assert flags[1] == flags[0]

@@ -7,6 +7,8 @@ is tests/test_torch_rosbag.py's."""
 import glob
 import logging
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -199,16 +201,66 @@ def test_cli_event_store_failure_fails_the_run(fixture_dir, tmp_path, monkeypatc
                         RUNS["fs"] + ["--splat_backend=scatter", "--use_event_store"]))
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--num_devices=2"], "item 6"),
-    (["--coordinator=localhost:1234"], "item 6"),
-    (["--num_processes=2"], "item 6"),
-    (["--process_id=0"], "item 6"),
-])
-def test_cli_refuses_what_is_not_ported(fixture_dir, tmp_path, extra, item):
+def _dsi_l1(a_dir, b_dir):
+    a, b = (np.load(os.path.join(d, "dsi_fused.npy")).astype(np.float64)
+            for d in (a_dir, b_dir))
+    return np.abs(b - a).sum() / np.abs(a).sum()
+
+
+@pytest.mark.parametrize("flag", ["--num_devices=2", "--coordinator", "--num_processes=1",
+                                  "--process_id=0"])
+def test_cli_runs_the_multi_rank_flags(runs, fixture_dir, tmp_path, monkeypatch, flag):
+    """Each flag the port once refused now runs: --num_devices=2 spawns two
+    CPU ranks (a subprocess here, so its ranks end with it); each process
+    flag alone joins a one-rank group in this process, the values it leaves
+    out read from the launcher's environment (MASTER_ADDR/MASTER_PORT,
+    WORLD_SIZE, RANK).  The fused DSI is process_1's on one device (relative
+    L1 1e-4) and the depth lies on the scene's planes."""
+    
     _, paths = fixture_dir
-    with pytest.raises(ValueError, match=f"ROADMAP Queue 1 {item}"):
-        tcli.main(_args(paths, str(tmp_path / "o"), extra))
+    out = str(tmp_path / "o")
+    extra = ["--process_method=1", "--save_dsi", "--nosave_pointcloud",
+             "--splat_backend=scatter"]
+    if flag == "--num_devices=2":
+        env = dict(os.environ, OMP_NUM_THREADS="1",
+                   PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        proc = subprocess.run([sys.executable, "-m", "dvs_mcemvs_torch.cli",
+                               *_args(paths, out, extra + [flag])], env=env, cwd=REPO,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        assert "spawning 2 ranks (cpu)" in proc.stderr
+    else:
+        from dvs_mcemvs_torch.parallel.mesh import free_port
+
+        port = str(free_port())
+        env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port, "WORLD_SIZE": "1",
+               "RANK": "0"}
+        if flag == "--coordinator":
+            flag = f"--coordinator=127.0.0.1:{port}"
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        assert tcli.main(_args(paths, out, extra + [flag])) == 0
+        import torch.distributed as dist
+
+        assert not dist.is_initialized()
+    assert _dsi_l1(runs["p1"][1], out) < 1e-4
+    f = [x for x in os.listdir(out) if x.endswith("depth_points_fused.txt")][0]
+    d = np.loadtxt(os.path.join(out, f))[:, 2]
+    assert np.median(np.minimum(np.abs(d - 1.5), np.abs(d - 2.5))) < 0.2
+
+
+def test_cli_refuses_more_devices_than_cards(fixture_dir, tmp_path, monkeypatch):
+    """--num_devices counts cards on the card platform: more than are
+    present raises, as the JAX package's make_mesh does."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    _, paths = fixture_dir
+    args = [a for a in _args(paths, str(tmp_path / "o"), ["--num_devices=2"])
+            if a != "--platform=cpu"] + ["--platform=cuda"]
+    with pytest.raises(ValueError, match="1 card"):
+        tcli.main(args)
 
 
 PRESETS = sorted(glob.glob(os.path.join(REPO, "configs", "**", "*.conf"), recursive=True))
@@ -218,15 +270,13 @@ PRESETS = sorted(glob.glob(os.path.join(REPO, "configs", "**", "*.conf"), recurs
                          ids=[os.path.relpath(p, os.path.join(REPO, "configs")) for p in PRESETS])
 def test_every_preset_is_ported(preset):
     """Every preset of configs/ (44 of them read ROS1 bags) parses as the JAX
-    CLI parses it and passes the port's check: the one refusal left is
-    more than one device or process."""
+    CLI parses it; the port refuses none of them."""
     from dvs_mcemvs_tpu import config as jconfig
     from dvs_mcemvs_torch import config as tconfig
 
     argv = [f"--flagfile={preset}"]
     cfg = tconfig.parse_args(argv)
     assert tconfig.config_to_flagfile(cfg) == jconfig.config_to_flagfile(jconfig.parse_args(argv))
-    tcli.check_ported(cfg)
 
 
 def test_cli_refuses_unknown_platform(fixture_dir, tmp_path):

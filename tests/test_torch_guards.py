@@ -33,6 +33,8 @@ SLICE_MODULES = [
     "dvs_mcemvs_torch.utils.writers", "dvs_mcemvs_torch.eval",
     "dvs_mcemvs_torch.eval.metrics", "dvs_mcemvs_torch.eval.dsec", "dvs_mcemvs_torch.cli",
     "dvs_mcemvs_torch.ops", "dvs_mcemvs_torch.kernels", "dvs_mcemvs_torch.utils",
+    "dvs_mcemvs_torch.parallel", "dvs_mcemvs_torch.parallel.mesh",
+    "dvs_mcemvs_torch.parallel.sharded",
 ]
 
 

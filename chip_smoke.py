@@ -11,8 +11,10 @@ bag, and drives the sharded step and the CLI on more than one rank.
 Phases (each raises on failure, so the script exits non-zero):
   1. device  -- require CUDA; print the card's name and power limit;
   2. build   -- nvcc the sources in dvs_mcemvs_torch/csrc/, all at once;
-  3. kernels -- kernel vs plain version on the card, error and CUDA-event
-                times, at the headline shapes: binning (f32 taps and int8,
+  3. kernels -- kernel vs plain version on the card, error and times (the
+                device alone, by CUDA graph, where a call does not sync
+                with the host; a loop of Python calls between CUDA events
+                beside it), at the headline shapes: binning (f32 taps and int8,
                 windowed and dense grids; the ss2 grid, events on every band
                 edge, 64-bit int8 sums, a ragged 552 x 830 grid; its launch
                 plans, cluster occupancy and ptxas report), both resample
@@ -21,7 +23,8 @@ Phases (each raises on failure, so the script exits non-zero):
                 call forms of the one-hot engine's specs (binning on the
                 unaligned 544-row grid and on 1088 x 1792; kernel B's sweep
                 from 544-row sources, the ss2 flat merge, a sweep into
-                260 x 346), the four platform probes;
+                260 x 346), the four platform probes (hbm_stream also on
+                ragged streams, block_step at 1, 300 and 4,096 blocks);
   4. chunk   -- process_1 + get_depth_map on 2 x 1 Mi events, 640x480x100,
                 with the auto-selected spec; every kernel must have run;
   5. golden  -- BENCH16 (2 x 262,144 events) on the literal spec, scored
@@ -76,6 +79,7 @@ The line before the last is {"kernels": [...]}; the last line is
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -192,6 +196,8 @@ CLI_PACKETS, PACKET_CLI = 64, 1024
 # every kernel here runs on the CUDA cores -- whichever is larger.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# `cuda_graph_ms` captures as many calls as fill a third of this many seconds.
+GRAPH_SECONDS = 0.15
 
 
 def log(msg: str) -> None:
@@ -206,8 +212,9 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device milliseconds per call of `fn`, by CUDA events, after one
-    warm-up call."""
+    """Mean milliseconds per call of `fn` over `iters` back-to-back Python
+    calls between two CUDA events, after one warm-up call.  Where a call is
+    shorter than the host's cost of making it, this times the host."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -218,6 +225,39 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@functools.lru_cache(maxsize=None)
+def probe_gpu():
+    """scripts/probe_gpu.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "probe_gpu", os.path.join(HERE, "scripts", "probe_gpu.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def cuda_graph_ms(fn) -> float:
+    """Device milliseconds per call of `fn` alone, by scripts/probe_gpu.py's
+    `cuda_graph_ms` (calls captured in one CUDA graph, best of three
+    replays).  `fn` must not wait for the card (a host sync inside a capture
+    raises).  A wrapper counts its launches when they are captured."""
+    return probe_gpu().cuda_graph_ms(fn, GRAPH_SECONDS)
+
+
+def timings(run, plain, library=None, *, iters: int, plain_iters: int = 2,
+            graph: bool = True) -> dict:
+    """A row's times: `ms` of `run` by `cuda_graph_ms` (`graph`=False: by the
+    loop, for a call that syncs with the host), `loop_ms` of `run` and
+    `plain_ms` of `plain` by `cuda_ms`, `library_ms` of `library` (a PyTorch
+    call) by `cuda_graph_ms`."""
+    loop_ms = cuda_ms(run, iters)
+    return dict(ms=cuda_graph_ms(run) if graph else loop_ms, loop_ms=loop_ms,
+                plain_ms=cuda_ms(plain, plain_iters),
+                library_ms=None if library is None else cuda_graph_ms(library),
+                timer="graph" if graph else "loop")
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -628,8 +668,8 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
     kernels A and B past the old cap at `cap` = (G, E, hs, ws, K), and in the
     one-hot engine's call forms for Z planes of Ho x Wo (`one_hot_small`:
     `one_hot_engine_cases`' `small`).
-    Returns {kernel name: {max_abs_err, ms, plain_ms, library_ms, bound_ms,
-    bound_by}}."""
+    Returns {kernel name: {max_abs_err, ms, loop_ms, timer, plain_ms,
+    library_ms, bound_ms, bound_by}}."""
     from dvs_mcemvs_torch.kernels import _build, binning, probes, resample
 
     rng = np.random.default_rng(0)
@@ -663,12 +703,13 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
         w = torch.as_tensor(weights["weighted"], **f32)
         live = int((w != 0).sum())
         out_bytes = G * h * ws * torch.finfo(out_dtype).bits // 8
+        # The int8 mode checks its weights with a host sync: loop-timed.
         return dict(
             max_abs_err=max(errs),
-            ms=cuda_ms(lambda: binning.bin_events(hx, hy, w, hs=h, ws=ws, int8=int8,
-                                                  out_dtype=out_dtype), iters),
-            plain_ms=cuda_ms(lambda: plain_fn(hx, hy, w, h, ws).to(out_dtype), iters),
-            library_ms=None,
+            **timings(lambda: binning.bin_events(hx, hy, w, hs=h, ws=ws, int8=int8,
+                                                 out_dtype=out_dtype),
+                      lambda: plain_fn(hx, hy, w, h, ws).to(out_dtype), iters=iters,
+                      plain_iters=iters, graph=not int8),
             # four tap products and adds for each live event
             **bound(nbytes(hx, hy, w) + out_bytes, 8 * live))
 
@@ -753,9 +794,10 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
         f"{cuda_ms(sweep_form, 2):.4f} ms")
     err = max(err, err_flat, err_sweep, cap_err_b, resample_edge_cases(dev, hist, rng, iters),
               one_hot.get("banded_resample_sum", 0.0))
+    # Each resample call copies its host index arrays to the card (a host
+    # sync), so kernel B's rows are loop-timed.
     results["banded_resample_sum"] = dict(
-        max_abs_err=err, ms=cuda_ms(merge, iters), plain_ms=cuda_ms(merge_plain, 2),
-        library_ms=None,
+        max_abs_err=err, **timings(merge, merge_plain, iters=iters, graph=False),
         **bound(nbytes(hist, sy, ty, tx, src_t.int(), out), resample_ops(src.size, hs, ws, ws)))
 
     # Kernel B through banded_resample_fanin: the plane sweep, and K = 32.
@@ -780,8 +822,8 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
         err_ = compare(f"banded_resample_fanin {label} ({S_}x{out_idx.shape[1]}x{K_} -> "
                        f"{Z_}x{Ho}x{Wo}, duplicates in out_idx)", got, plain())
         moved = nbytes(blocks, sy_, ty_, sx_, tx_, got) + out_idx.size * 4
-        return dict(max_abs_err=err_, ms=cuda_ms(run, iters), plain_ms=cuda_ms(plain, n_plain),
-                    library_ms=None,
+        return dict(max_abs_err=err_,
+                    **timings(run, plain, iters=iters, plain_iters=n_plain, graph=False),
                     **bound(moved, resample_ops(len(items_out) * K_, Ho, ws, Wo)))
 
     sweep = fanin_case("sweep", S, K_sweep, Z, 2)
@@ -814,17 +856,54 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
     }
     for name, (run, plain, library, moved, ops) in cases.items():
         err = compare_exact(f"{name} probe", run(), plain())
-        results[name] = dict(max_abs_err=err, ms=cuda_ms(run, iters),
-                             plain_ms=cuda_ms(plain, 2),
-                             library_ms=cuda_ms(library, iters) if library else None,
+        results[name] = dict(max_abs_err=err, **timings(run, plain, library, iters=iters),
                              **bound(moved, ops))
+    results["hbm_stream"]["max_abs_err"] = max(
+        results["hbm_stream"]["max_abs_err"], hbm_stream_cases(dev, stream, rng))
+    results["block_step"]["max_abs_err"] = max(
+        results["block_step"]["max_abs_err"], block_step_cases(tile))
     del stream
     for name, r in results.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-            f"{lib}, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
-            f"(CUDA events, mean of {iters})")
+        log(f"  {name}: kernel {r['ms']:.4f} ms by {r['timer']} (loop {r['loop_ms']:.4f} "
+            f"ms), plain {r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} "
+            f"ms by {r['bound_by']}")
+    log(f"  (graph: device alone, calls in one CUDA graph, best of 3 replays; loop: "
+        f"{iters} Python calls between CUDA events, for calls that sync with the host "
+        f"and as the earlier measure; plain: loop)")
     return results
+
+
+def hbm_stream_cases(dev, stream, rng) -> float:
+    """hbm_stream against its plain version on ragged streams: fewer blocks
+    than the ring's stages (2 and 3), a vector count that is no multiple of
+    the SM count, slices longer than a tile.  Logs the probe's slice plan.
+    Returns the largest error (0)."""
+    from dvs_mcemvs_torch.kernels import probes
+
+    shapes = ((2, *stream.shape[1:]), (3, 40, 136), (5, 40, 136), (3, 1100, 1000))
+    errs = [compare_exact(f"hbm_stream {shape}", probes.hbm_stream(x),
+                          probes.hbm_stream_reference(x))
+            for shape in shapes
+            for x in [torch.as_tensor(rng.uniform(-4, 4, shape), dtype=torch.float32,
+                                      device=dev).to(torch.bfloat16)]]
+    if dev.type == "cuda":
+        n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        n8 = stream[0].numel() // 8
+        lengths = [n for _, n in probes.stream_plan(n8, n_sms)]
+        log(f"  hbm_stream plan: {n8} vectors on {n_sms} SMs, {len(lengths)} slices of "
+            f"{min(lengths)}-{max(lengths)} vectors ({16 * max(lengths)} B a row)")
+    return max(errs)
+
+
+def block_step_cases(tile) -> float:
+    """block_step against its plain version at 1, 300 and 4,096 blocks
+    (phase 7 times it at 1, 4,096 and 65,536).  Returns the largest error
+    (0)."""
+    from dvs_mcemvs_torch.kernels import probes
+
+    return max(compare_exact(f"block_step {n} blocks", probes.block_step(tile, n),
+                             probes.block_step_reference(tile)) for n in (1, 300, 4096))
 
 
 # ---------------------------------------------------------------------------
@@ -1097,14 +1176,8 @@ def dense_phase(dev, workload, hs=HS_DENSE, group_size=16):
 def probe_phase(min_time=0.2):
     """scripts/probe_gpu.py's measurement with fresh launch counters.
     Returns (its numbers, the launch counts of its run)."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "probe_gpu", os.path.join(HERE, "scripts", "probe_gpu.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
     zero_counts()
-    res = mod.measure(min_time, log=lambda msg: log("  " + msg))
+    res = probe_gpu().measure(min_time, log=lambda msg: log("  " + msg))
     return res, read_counts()
 
 
@@ -1935,7 +2008,8 @@ def main() -> int:
     missing = [name for name in sources if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on their paths: {missing}")
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("max_abs_err", "ms", "loop_ms", "timer", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **{k: results[name][k] for k in keys}}
                for name, (src, rep) in sources.items()]

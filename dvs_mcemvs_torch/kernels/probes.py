@@ -6,7 +6,7 @@ The H100 counterparts of the four Pallas probes of scripts/probe_tpu.py
 Each computes a defined result at the TPU probe's shapes:
 
     smem_copy(a)      out = fl(fl(a * 1.0001) * 1.0001)        (1, 576, 896) f32
-    block_step(a)     out = a + 1                              (1, 8, 128) f32
+    block_step(a)     out = a + 1, one writer a value          (1, 8, 128) f32
     hbm_stream(a)     out = sum_g a[g] in f32, in g order      (256, 576, 896) bf16
     dyn_slice(a)      out[0, r] = sum over steps x offsets q_k of a[0, q_k + r]
                       for r < qv, in that order; zero below   (1, 576, 896) f32
@@ -14,12 +14,15 @@ Each computes a defined result at the TPU probe's shapes:
 The TPU's `run_f` and `run_d` add into an output they never initialise;
 here the output starts at zero.  Every sum is a chain of f32 additions in a
 fixed order, so each kernel equals its plain version exactly.  A CPU tensor
-runs the plain version; a CUDA tensor launches the kernel.
+runs the plain version; a CUDA tensor launches the kernel.  `hbm_stream`
+launches one persistent block an SM and passes each its slice of
+`stream_plan`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -30,17 +33,22 @@ _c_void_p, _c_int, _c_int64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SCALE = float(np.float32(1.0001))   # the f32 constant of run_c
 PASSES, REPS = 64, 4                # run_c: 64 grid steps of R = 4 round trips
 N_BLOCKS = 4096                     # run_e: 4096 grid steps
+MAX_SLICES = 256                    # hbm_stream: kMaxSlices of csrc/probes.cu
 QV, N_OFFSETS, STEPS = 168, 20, 64  # run_d: 168-row slices, 20 offsets, 64 steps
 
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("probes")
+    if vars(lib).get("argtypes_set"):
+        return lib
     lib.smem_copy.argtypes = [_c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_void_p]
     lib.block_step.argtypes = [_c_void_p, _c_void_p, _c_int, _c_int, _c_void_p]
-    lib.hbm_stream.argtypes = [_c_void_p, _c_void_p, _c_int, _c_int64, _c_void_p]
+    lib.hbm_stream.argtypes = [_c_void_p, _c_void_p, _c_int, _c_int64, _c_int,
+                               ctypes.POINTER(_c_int64), _c_void_p]
     lib.dyn_slice.argtypes = [_c_void_p, _c_void_p] + [_c_int] * 5 + [_c_void_p]
     for fn in (lib.smem_copy, lib.block_step, lib.hbm_stream, lib.dyn_slice):
         fn.restype = _c_int
+    lib.argtypes_set = True
     return lib
 
 
@@ -60,6 +68,26 @@ def _check(a: torch.Tensor, dtype: torch.dtype, multiple: int, what: str) -> boo
 
 def _stream(a: torch.Tensor) -> int:
     return torch.cuda.current_stream(a.device).cuda_stream
+
+
+def stream_plan(n8: int, n_sms: int) -> list:
+    """hbm_stream's split of n8 vectors of 16 bytes over min(n8, n_sms)
+    persistent blocks: [(start, length)] of contiguous slices, in order, the
+    first n8 % n_blocks one vector longer.  The kernel's block i sums slice
+    i of this plan."""
+    if n8 < 1 or n_sms < 1:
+        raise ValueError(f"stream_plan needs n8, n_sms >= 1, got {n8}, {n_sms}")
+    n_blocks = min(n8, n_sms)
+    base, extra = divmod(n8, n_blocks)
+    return [(i * base + min(i, extra), base + (i < extra)) for i in range(n_blocks)]
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_starts(n8: int, n_sms: int) -> tuple:
+    """`stream_plan` as the kernel takes it: (slices, C array of the slices'
+    starts and n8)."""
+    plan = stream_plan(n8, min(n_sms, MAX_SLICES))
+    return len(plan), (_c_int64 * (len(plan) + 1))(*(start for start, _ in plan), n8)
 
 
 def offsets(h: int, qv: int = QV, n_offsets: int = N_OFFSETS) -> list:
@@ -92,10 +120,11 @@ def block_step_reference(a: torch.Tensor) -> torch.Tensor:
 
 
 def block_step(a: torch.Tensor, n_blocks: int = N_BLOCKS) -> torch.Tensor:
-    """`n_blocks` one-warp blocks, each writing out = a + 1 over all of `a`
-    (a small tile: the TPU probe's (1, 8, 128))."""
-    if n_blocks < 1:
-        raise ValueError("n_blocks must be >= 1")
+    """out = a + 1 over a small tile (the TPU probe's (1, 8, 128)) by
+    `n_blocks` one-warp blocks: block b writes the float4 vectors
+    v = b (mod n_blocks), and blocks past the tile's vectors do nothing."""
+    if not 1 <= n_blocks <= 2**31 - 1:
+        raise ValueError(f"n_blocks must be in [1, 2^31 - 1], got {n_blocks}")
     if not _check(a, torch.float32, 4, "block_step"):
         return block_step_reference(a)
     out = torch.empty_like(a)
@@ -115,7 +144,9 @@ def hbm_stream_reference(a: torch.Tensor) -> torch.Tensor:
 
 
 def hbm_stream(a: torch.Tensor) -> torch.Tensor:
-    """(G, ...) bfloat16 -> (1, ...) float32 sum over G, added in g order."""
+    """(G, ...) bfloat16 -> (1, ...) float32 sum over G, added in g order.
+    On the card: one block an SM over its slice of `stream_plan`, four rows
+    in flight through a ring in shared memory."""
     if a.ndim < 2 or a[0].numel() % 8:
         raise ValueError(f"hbm_stream: input must be (G, ...) with a multiple of 8 "
                          f"values per block, got {tuple(a.shape)}")
@@ -124,8 +155,11 @@ def hbm_stream(a: torch.Tensor) -> torch.Tensor:
     if a.numel() == 0:
         return torch.zeros((1, *a.shape[1:]), dtype=torch.float32, device=a.device)
     out = torch.empty((1, *a.shape[1:]), dtype=torch.float32, device=a.device)
+    n_sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    n_slices, starts = _plan_starts(out.numel() // 8, n_sms)
     _build.check(_library().hbm_stream(a.data_ptr(), out.data_ptr(), a.shape[0],
-                                       out.numel(), _stream(a)), "hbm_stream")
+                                       out.numel(), n_slices, starts, _stream(a)),
+                 "hbm_stream")
     hbm_stream.launches += 1
     return out
 

@@ -5,20 +5,30 @@ the TPU probes' shapes separate the resources a kernel of this repo can be
 bound by, plus the host link:
 
   1. smem copy:   shared-memory bandwidth (TPU: VMEM round trip, run_c)
-  2. block step:  cost of one block and of one launch from Python through
-                  ctypes (TPU: empty grid step, run_e)
+  2. block step:  the device's launch latency (one block), the cost of a
+                  one-warp block (the slope from 4,096 to 65,536 blocks),
+                  torch.add on the same tile, and the host's cost of one
+                  launch from Python through ctypes (TPU: empty grid step,
+                  run_e)
   3. hbm stream:  device-memory read bandwidth over 576 x 896 bf16 blocks
-                  (~1 MB each; TPU: run_f)
+                  (~1 MB each; TPU: run_f), its share of 3.35 TB/s, and
+                  torch.sum over the same stream
   4. dyn slice:   loads at computed row offsets from an L2-resident array
                   (TPU: dynamic-slice traffic, run_d)
   5. host link:   pageable and pinned host -> device copies, device -> host
                   copies, at 1, 4 and 16 MB
 
-Each probe runs a loop timed to `--min-time` seconds with CUDA events after a
-warm-up, and reports the fastest of three such loops.  Every line ends with
-the card's name and power limit.  Without a CUDA device it raises.
+A device time is the card's alone: after a warm-up, calls captured into one
+CUDA graph (as many as fill a third of `--min-time`, at most 1,000) are
+replayed between two CUDA events, best of three replays.  Host times are
+loops timed to `--min-time` by the host clock.  Every line ends with the
+card's name and power limit.  Without a CUDA device it raises.
 
-    python3 scripts/probe_gpu.py [--min-time 1.5]
+`--root DIR` times the probes of the port in DIR (a checkout or a `git
+archive` of another commit; its kernels build under DIR/build/) by this
+script's timers, so that two commits compare by one method on one card:
+
+    python3 scripts/probe_gpu.py [--min-time 1.5] [--root DIR]
 """
 
 from __future__ import annotations
@@ -38,6 +48,9 @@ import torch  # noqa: E402
 
 H, W = 576, 896   # the voting grid's padded histogram block
 G = 256           # blocks of the HBM stream
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
+STEP_BLOCKS = (1, 4096, 65536)   # block_step: one block, ~one wave, ~16 waves
+MAX_GRAPH_CALLS = 1000
 
 
 def nvidia_smi_line() -> str:
@@ -47,10 +60,12 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_timeit_ms(fn, min_time: float) -> float:
-    """Milliseconds per call of `fn` on the card: one warm-up call, a
-    count of calls that fills `min_time` seconds, best of three loops timed
-    with CUDA events."""
+def cuda_graph_ms(fn, min_time: float) -> float:
+    """Device milliseconds per call of `fn` alone, without the host's cost
+    of making the call: one warm-up call, as many calls as fill a third of
+    `min_time` (10 to MAX_GRAPH_CALLS) captured into one CUDA graph, the
+    graph replayed between two CUDA events, best of three replays.  `fn`
+    must not wait for the card."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -60,15 +75,18 @@ def cuda_timeit_ms(fn, min_time: float) -> float:
     end.record()
     end.synchronize()
     one = max(start.elapsed_time(end) / 1e3, 1e-6)
-    iters = int(np.clip(math.ceil(min_time / one), 5, 5000))
+    calls = int(np.clip(math.ceil(min_time / 3 / one), 10, MAX_GRAPH_CALLS))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
     best = math.inf
     for _ in range(3):
         start.record()
-        for _ in range(iters):
-            fn()
+        graph.replay()
         end.record()
         end.synchronize()
-        best = min(best, start.elapsed_time(end) / iters)
+        best = min(best, start.elapsed_time(end) / calls)
     return best
 
 
@@ -103,15 +121,23 @@ def measure(min_time: float = 1.5, log=print) -> dict:
         log(f"{text}  [{smi}]")
 
     a32 = torch.ones((1, H, W), dtype=torch.float32, device=dev)
-    ms = cuda_timeit_ms(lambda: probes.smem_copy(a32), min_time)
+    ms = cuda_graph_ms(lambda: probes.smem_copy(a32), min_time)
     smem_bytes = probes.PASSES * probes.REPS * H * W * 4 * 2   # a store and a load
     emit("smem_tb_s", smem_bytes / ms / 1e9, f"smem copy: {smem_bytes / ms / 1e9:.3f} TB/s")
 
     tile = torch.ones((1, 8, 128), dtype=torch.float32, device=dev)
-    ms = cuda_timeit_ms(lambda: probes.block_step(tile), min_time)
-    emit("block_step_ns", ms * 1e6 / probes.N_BLOCKS,
-         f"block step: {ms * 1e6 / probes.N_BLOCKS:.2f} ns per one-warp block "
-         f"({probes.N_BLOCKS} blocks in {ms * 1e3:.2f} us)")
+    step_us = {n: cuda_graph_ms(lambda: probes.block_step(tile, n), min_time) * 1e3
+               for n in STEP_BLOCKS}
+    add_us = cuda_graph_ms(lambda: torch.add(tile, 1.0), min_time) * 1e3
+    lo, hi = STEP_BLOCKS[1:]
+    slope_ns = (step_us[hi] - step_us[lo]) * 1e3 / (hi - lo)
+    res["block_step_us"], res["torch_add_us"] = step_us, add_us
+    emit("launch_latency_us", step_us[1],
+         f"block step: device launch latency {step_us[1]:.3f} us (1 block; "
+         f"torch.add on the tile {add_us:.3f} us)")
+    emit("block_step_ns", slope_ns,
+         f"block step: {slope_ns:.3f} ns per one-warp block ({lo} blocks in "
+         f"{step_us[lo]:.3f} us, {hi} in {step_us[hi]:.3f} us)")
     n_launch = 2000
 
     def launches():
@@ -124,15 +150,21 @@ def measure(min_time: float = 1.5, log=print) -> dict:
          "(wrapper + ctypes + launch)")
 
     big = torch.ones((G, H, W), dtype=torch.bfloat16, device=dev)
-    ms = cuda_timeit_ms(lambda: probes.hbm_stream(big), min_time)
+    read = big.numel() * 2
     block_mb = H * W * 2 / 2**20
-    emit("hbm_gb_s", big.numel() * 2 / ms / 1e6,
-         f"hbm stream: {big.numel() * 2 / ms / 1e6:.1f} GB/s "
-         f"({ms * 1e3 / G:.3f} us per {block_mb:.2f} MiB block)")
+    ms = cuda_graph_ms(lambda: probes.hbm_stream(big), min_time)
+    emit("hbm_gb_s", read / ms / 1e6,
+         f"hbm stream: {read / ms / 1e6:.1f} GB/s, {read / ms * 1e3 / HBM_BYTES_PER_S:.1%} "
+         f"of 3.35 TB/s ({ms:.4f} ms, {ms * 1e3 / G:.3f} us per {block_mb:.2f} MiB "
+         f"block)")
     res["hbm_us_per_block"] = ms * 1e3 / G
+    ms = cuda_graph_ms(lambda: torch.sum(big, 0, keepdim=True, dtype=torch.float32),
+                       min_time)
+    emit("torch_sum_gb_s", read / ms / 1e6,
+         f"torch.sum over the same stream: {read / ms / 1e6:.1f} GB/s ({ms:.4f} ms)")
     del big
 
-    ms = cuda_timeit_ms(lambda: probes.dyn_slice(a32), min_time)
+    ms = cuda_graph_ms(lambda: probes.dyn_slice(a32), min_time)
     dyn_bytes = probes.STEPS * probes.N_OFFSETS * probes.QV * W * 4   # bytes loaded
     emit("dyn_slice_tb_s", dyn_bytes / ms / 1e9,
          f"dyn slice: {dyn_bytes / ms / 1e9:.3f} TB/s loaded at computed offsets")
@@ -164,7 +196,14 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--min-time", type=float, default=1.5,
                         help="seconds each timed loop runs (default 1.5)")
-    measure(parser.parse_args().min_time)
+    parser.add_argument("--root", default=REPO,
+                        help="the checkout whose dvs_mcemvs_torch is timed (default: this one)")
+    args = parser.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+    import dvs_mcemvs_torch
+
+    print(f"port: {os.path.dirname(dvs_mcemvs_torch.__file__)}")
+    measure(args.min_time)
 
 
 if __name__ == "__main__":

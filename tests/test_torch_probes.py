@@ -59,6 +59,55 @@ def test_hbm_stream_is_run_f():
     np.testing.assert_array_equal(to_np(got), want)
 
 
+@pytest.mark.parametrize("shape", [(1, 64, 256), (3, 64, 256), (3, 8)],
+                         ids=["G1", "G3", "block-of-8"])
+def test_hbm_stream_small_streams(shape):
+    """kern_f's statement at one and three blocks (fewer than the kernel's
+    ring stages) and at blocks of 8 values (one 16-byte vector)."""
+    a = torch.as_tensor(np.random.default_rng(44).uniform(-4.0, 4.0, shape),
+                        dtype=torch.float32).to(torch.bfloat16)
+    a_np = a.to(torch.float32).numpy()
+    want = np.zeros((1, *shape[1:]), np.float32)
+    for g in range(shape[0]):
+        want[0] += a_np[g]
+    np.testing.assert_array_equal(to_np(probes.hbm_stream(a)), want)
+
+
+@pytest.mark.parametrize("n_sms", [1, 78, 132])
+@pytest.mark.parametrize("n8", [1, 7, 131, 132, 133, 64_512])
+def test_stream_plan_splits_evenly(n8, n_sms):
+    """hbm_stream's slices: every vector in exactly one slice, in order;
+    lengths differ by at most one; no more slices than SMs; none empty.
+    The kernel's block i sums slice i of this plan, as the wrapper passes
+    it (`test_kernel_gets_the_plan`)."""
+    plan = probes.stream_plan(n8, n_sms)
+    starts = [start for start, _ in plan]
+    lengths = [length for _, length in plan]
+    assert len(plan) == min(n8, n_sms)
+    assert min(lengths) >= 1 and max(lengths) - min(lengths) <= 1
+    covered = np.concatenate([np.arange(s, s + n) for s, n in plan])
+    np.testing.assert_array_equal(covered, np.arange(n8))
+    assert starts == sorted(starts)
+
+
+@pytest.mark.parametrize("n8, n_sms, n_slices", [(64_512, 132, 132), (7, 132, 7),
+                                                 (1000, 300, probes.MAX_SLICES)])
+def test_kernel_gets_the_plan(n8, n_sms, n_slices):
+    """The slice count and starts that hbm_stream passes to the kernel:
+    stream_plan's starts and n8, at most MAX_SLICES slices."""
+    got_slices, starts = probes._plan_starts(n8, n_sms)
+    plan = probes.stream_plan(n8, min(n_sms, probes.MAX_SLICES))
+    assert got_slices == len(plan) == n_slices
+    assert list(starts) == [start for start, _ in plan] + [n8]
+
+
+def test_stream_plan_at_the_probe_shape():
+    """(256, 576, 896) bf16 on 132 SMs: 64,512 vectors, 96 slices of 489
+    and 36 of 488."""
+    lengths = [n for _, n in probes.stream_plan(576 * 896 // 8, 132)]
+    assert lengths == [489] * 96 + [488] * 36
+
+
 def test_dyn_slice_is_run_d():
     """kern_d: 64 steps of 20 row slices a[q_r : q_r + 168] accumulated into
     out[0:168], q_r = ((29 r) mod (H - 168)) // 8 * 8; rows 168 on stay zero."""
@@ -90,8 +139,15 @@ def test_cpu_probes_launch_no_kernel():
 @pytest.mark.parametrize("call", [
     lambda: probes.smem_copy(torch.ones(6)),                        # not a multiple of 4
     lambda: probes.hbm_stream(torch.ones((2, 8), dtype=torch.float32)),  # not bf16
+    lambda: probes.hbm_stream(torch.ones((2, 12), dtype=torch.bfloat16)),  # 12 values
     lambda: probes.dyn_slice(torch.ones((1, 100, 128))),            # H <= 168
-], ids=["smem-size", "hbm-dtype", "dyn-rows"])
+    lambda: probes.block_step(torch.ones((1, 8, 128)), n_blocks=0),
+    lambda: probes.block_step(torch.ones(6)),                       # not a multiple of 4
+    lambda: probes.block_step(torch.ones((1, 8, 128), dtype=torch.float64)),
+    lambda: probes.stream_plan(0, 132),                             # no vectors
+    lambda: probes.stream_plan(8, 0),                               # no SMs
+], ids=["smem-size", "hbm-dtype", "hbm-block", "dyn-rows", "step-blocks", "step-size",
+        "step-dtype", "plan-empty", "plan-no-sms"])
 def test_probes_reject_bad_inputs(call):
     with pytest.raises((TypeError, ValueError)):
         call()

@@ -24,7 +24,9 @@ Phases (each raises on failure, so the script exits non-zero):
                 unaligned 544-row grid and on 1088 x 1792; kernel B's sweep
                 from 544-row sources, the ss2 flat merge, a sweep into
                 260 x 346), the four platform probes (hbm_stream also on
-                ragged streams, block_step at 1, 300 and 4,096 blocks);
+                ragged streams, block_step at 1, 300 and 4,096 blocks,
+                smem_copy and dyn_slice on ragged shapes, with the on-chip
+                ceiling of these two);
   4. chunk   -- process_1 + get_depth_map on 2 x 1 Mi events, 640x480x100,
                 with the auto-selected spec; every kernel must have run;
   5. golden  -- BENCH16 (2 x 262,144 events) on the literal spec, scored
@@ -655,6 +657,7 @@ def empty_calls_launch_nothing(dev):
     probes.smem_copy(empty)
     probes.block_step(empty)
     probes.hbm_stream(torch.zeros((2, 0, 8), dtype=torch.bfloat16, device=dev))
+    probes.dyn_slice(torch.zeros((1, 200, 0), **f32))
     if read_counts() != before:
         raise AssertionError("an empty call counted a kernel launch")
     log("  empty calls: no launch counted")
@@ -669,7 +672,8 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
     one-hot engine's call forms for Z planes of Ho x Wo (`one_hot_small`:
     `one_hot_engine_cases`' `small`).
     Returns {kernel name: {max_abs_err, ms, loop_ms, timer, plain_ms,
-    library_ms, bound_ms, bound_by}}."""
+    library_ms, bound_ms, bound_by, ceiling_ms, ceiling_share}}; the on-chip
+    ceiling is None but for the shared-memory probes on a card."""
     from dvs_mcemvs_torch.kernels import _build, binning, probes, resample
 
     rng = np.random.default_rng(0)
@@ -858,16 +862,39 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
         err = compare_exact(f"{name} probe", run(), plain())
         results[name] = dict(max_abs_err=err, **timings(run, plain, library, iters=iters),
                              **bound(moved, ops))
+    # The shared-memory probes' on-chip ceiling: the bytes each is defined to
+    # move through shared memory at the card's top SM clock.
+    for r in results.values():
+        r.update(ceiling_ms=None, ceiling_share=None)
+    if dev.type == "cuda":
+        onchip = {"smem_copy": probe_gpu().smem_copy_bytes(a32.numel(), probes.PASSES,
+                                                           probes.REPS),
+                  "dyn_slice": probe_gpu().dyn_slice_bytes(probe_w, probes.QV,
+                                                           probes.N_OFFSETS, probes.STEPS)}
+        now, top = probe_gpu().sm_clocks_mhz()
+        n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        log(f"  SM clock {now:.0f} MHz after the probes' timing, top {top:.0f} MHz; "
+            f"{n_sms} SMs")
+        for name, onchip_bytes in onchip.items():
+            ceiling = probe_gpu().ceiling_ms(onchip_bytes, n_sms, top)
+            results[name].update(ceiling_ms=ceiling,
+                                 ceiling_share=ceiling / results[name]["ms"])
     results["hbm_stream"]["max_abs_err"] = max(
         results["hbm_stream"]["max_abs_err"], hbm_stream_cases(dev, stream, rng))
     results["block_step"]["max_abs_err"] = max(
         results["block_step"]["max_abs_err"], block_step_cases(tile))
+    results["smem_copy"]["max_abs_err"] = max(
+        results["smem_copy"]["max_abs_err"], smem_copy_cases(dev, rng))
+    results["dyn_slice"]["max_abs_err"] = max(
+        results["dyn_slice"]["max_abs_err"], dyn_slice_cases(dev, rng))
     del stream
     for name, r in results.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        ceiling = ("" if r["ceiling_ms"] is None else
+                   f", on-chip ceiling {r['ceiling_ms']:.4f} ms ({r['ceiling_share']:.1%})")
         log(f"  {name}: kernel {r['ms']:.4f} ms by {r['timer']} (loop {r['loop_ms']:.4f} "
             f"ms), plain {r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} "
-            f"ms by {r['bound_by']}")
+            f"ms by {r['bound_by']}{ceiling}")
     log(f"  (graph: device alone, calls in one CUDA graph, best of 3 replays; loop: "
         f"{iters} Python calls between CUDA events, for calls that sync with the host "
         f"and as the earlier measure; plain: loop)")
@@ -893,6 +920,61 @@ def hbm_stream_cases(dev, stream, rng) -> float:
         lengths = [n for _, n in probes.stream_plan(n8, n_sms)]
         log(f"  hbm_stream plan: {n8} vectors on {n_sms} SMs, {len(lengths)} slices of "
             f"{min(lengths)}-{max(lengths)} vectors ({16 * max(lengths)} B a row)")
+    return max(errs)
+
+
+# smem_copy's ragged shapes (floats): one vector, fewer vectors than SMs,
+# slices shorter than a warp (20 vectors an SM), slices past 1,024 vectors.
+SMEM_COPY_SHAPES = ((4,), (4 * 100,), (4 * 132 * 20,), (1, 1100, 1000))
+# dyn_slice's ragged shapes, as tests/test_torch_probes.py: H, W (no multiple
+# of a strip; 901 and 3 no multiple of 4), qv, offsets; one step.  The last
+# two stage more than 48 KB a block (93 and 219 KB), which takes the
+# launcher's opt-in.
+DYN_SLICE_SHAPES = tuple((h, w, qv, n) for h in (200, 1100) for w in (136, 900)
+                         for qv in (8, h - 1) for n in (1, 20)) + (
+                             (200, 901, 8, 20), (200, 3, 150, 20), (3000, 64, 40, 300),
+                             (14_000, 4, 8, 512))
+
+
+def smem_copy_cases(dev, rng) -> float:
+    """smem_copy against its plain version at SMEM_COPY_SHAPES.  Logs the
+    probe's slice plan.  Returns the largest error (0)."""
+    from dvs_mcemvs_torch.kernels import probes
+
+    errs = [compare_exact(f"smem_copy {shape}", probes.smem_copy(x),
+                          probes.smem_copy_reference(x))
+            for shape in SMEM_COPY_SHAPES
+            for x in [torch.as_tensor(rng.uniform(-2, 2, shape), dtype=torch.float32,
+                                      device=dev)]]
+    if dev.type == "cuda":
+        n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        n4 = PROBE_H * PROBE_W // 4
+        lengths = [n for _, n in probes.stream_plan(n4, n_sms)]
+        log(f"  smem_copy plan: {n4} vectors on {n_sms} SMs, {len(lengths)} slices of "
+            f"{min(lengths)}-{max(lengths)} vectors, one a thread")
+    return max(errs)
+
+
+def dyn_slice_cases(dev, rng) -> float:
+    """dyn_slice against its plain version at DYN_SLICE_SHAPES.  Logs the
+    probe's plan.  Returns the largest error (0)."""
+    from dvs_mcemvs_torch.kernels import probes
+
+    errs = [compare_exact(f"dyn_slice H={h} W={w} qv={qv} {n} offsets",
+                          probes.dyn_slice(x, qv, n, 1), probes.dyn_slice_reference(x, qv, n, 1))
+            for h, w, qv, n in DYN_SLICE_SHAPES
+            for x in [torch.as_tensor(rng.uniform(-2, 2, (1, h, w)), dtype=torch.float32,
+                                      device=dev)]]
+    if dev.type == "cuda":
+        n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = probes.dyn_slice_plan(PROBE_H, PROBE_W, probes.QV, probes.offsets(PROBE_H),
+                                     n_sms)
+        log(f"  dyn_slice plan: {plan.n_items} items of {plan.strip} float4 x {plan.band} "
+            f"rows on {len(plan.starts) - 1} blocks, {plan.batch} staged at once "
+            f"({plan.smem_bytes} B, {plan.threads} threads)")
+        for h, w, qv, n in DYN_SLICE_SHAPES[-2:]:
+            big = probes.dyn_slice_plan(h, w, qv, probes.offsets(h, qv, n), n_sms)
+            log(f"  dyn_slice H={h} W={w} qv={qv} {n} offsets: {big.smem_bytes} B a block")
     return max(errs)
 
 
@@ -2009,7 +2091,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels not launched on their paths: {missing}")
     keys = ("max_abs_err", "ms", "loop_ms", "timer", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "library_ms", "ceiling_ms", "ceiling_share")
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **{k: results[name][k] for k in keys}}
                for name, (src, rep) in sources.items()]

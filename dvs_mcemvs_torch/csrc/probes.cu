@@ -5,14 +5,20 @@
 // leaves its output uninitialised, the output starts at zero here.
 //
 //   smem_copy  replaces run_c (probe_tpu.py:75, VMEM round trip).  Measures
-//              shared-memory bandwidth: every thread stages its four floats
-//              of `a`, times 1.0001, through shared memory `reps` times per
-//              pass and reads them back, 16-byte vector accesses that the
-//              compiler must keep: `volatile` PTX loads and stores, which
-//              ptxas may neither merge nor drop (plain ld/st.shared of one
-//              address are forwarded and the loop collapses, reporting more
-//              than the H100 SXM's peak of 132 SMs x 128 bytes a clock at
-//              1.98 GHz, 33 TB/s).  out = fl(fl(a*1.0001)*1.0001).
+//              shared-memory bandwidth: every thread stages its float4 of
+//              `a`, times 1.0001, through shared memory `reps` times per pass
+//              and reads it back, 16-byte vector accesses that the compiler
+//              must keep: `volatile` PTX loads and stores, which ptxas may
+//              neither merge nor drop (plain ld/st.shared of one address are
+//              forwarded and the loop collapses, reporting more than the H100
+//              SXM's peak of 132 SMs x 128 bytes a clock at 1.98 GHz,
+//              33 TB/s).  out = fl(fl(a*1.0001)*1.0001).  What bounds it is
+//              that peak, on the SM with the most vectors: so one persistent
+//              block an SM owns an even, contiguous slice of the n / 4
+//              vectors (kernels.probes.stream_plan, passed by value as
+//              hbm_stream's), one vector a thread (a thread takes a second
+//              one past 1,024 a slice).  Two blocks an SM were no faster
+//              (PERF.md section 6).
 //   block_step replaces run_e (probe_tpu.py:95, an empty grid step).
 //              Measures the cost of a block: out = a + 1 on a small tile
 //              (the TPU probe's 8 x 128), where block b of `n_blocks`
@@ -44,23 +50,36 @@
 //              release the slot, and write each tile's sums once.  The ring
 //              size was chosen by scripts/tune_probes.py (PERF.md section 6).
 //   dyn_slice  replaces run_d (probe_tpu.py:138, dynamic-slice traffic).
-//              Measures loads at computed row offsets, the access pattern of
-//              the resample kernel's bands: out[r, c] for r < qv sums
-//              a[q_k + r, c] over `steps` x `n_offsets` offsets
-//              q_k = ((29 k) mod (H - qv)) / 8 * 8, in that order; rows from qv
-//              on stay zero.  The loads are inline PTX inside loops whose trip
-//              counts are run-time arguments, so none is merged or hoisted;
-//              they are plain cacheable loads, as the resample kernel's are.
+//              Measures loads at computed row offsets from on-chip memory, the
+//              access pattern of the resample kernel's bands: out[r, c] for
+//              r < qv sums a[q_k + r, c] over `steps` x `n_offsets` offsets
+//              q_k (kernels.probes.offsets, passed by value as byte offsets:
+//              the loop does no integer division), in that order; the kernel
+//              writes the rows from qv on as zeros.  What bounds it is the
+//              SMs' shared-memory port, 128 bytes a clock.  Items are `strip`
+//              float4 columns by `band` output rows; one persistent block an
+//              SM owns an even slice of them (kernels.probes.stream_plan),
+//              stages for each strip its items reach the rows [first row +
+//              min q, last row + max q) once, in shared memory, and each
+//              thread adds its float4 of output from one volatile 16-byte
+//              shared load an offset and step, none merged or hoisted, the
+//              next four issued before the current four are added.  A warp
+//              reads consecutive 16-byte words (offsets are multiples of 8
+//              rows), so no load has a bank conflict.  Items of 2 float4 x 24
+//              rows were chosen by scripts/tune_probes.py (PERF.md section
+//              6): 784 at the probe's shape, 6 an SM, 288 threads (9 full
+//              warps) a block, rows staged as whole 32-byte sectors.
 //
-// What bounds them: smem_copy the SMs' shared-memory ports, block_step the
-// block scheduler, hbm_stream the HBM3 bandwidth (3.35 TB/s), dyn_slice the
-// L1/L2 load path (`a` is 2 MB and stays in L2).  All sums are f32 additions
-// in a fixed order and the products single roundings, so every probe equals
-// its plain version exactly.
+// What bounds them: smem_copy and dyn_slice the SMs' shared-memory ports,
+// block_step the block scheduler, hbm_stream the HBM3 bandwidth (3.35 TB/s).
+// All sums are f32 additions in a fixed order and the products single
+// roundings, so every probe equals its plain version exactly.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -86,31 +105,35 @@ __device__ __forceinline__ float4 lds4(unsigned addr) {
   return v;
 }
 
-__device__ __forceinline__ float ld_keep(const float* p) {
-  float v;
-  asm volatile("ld.global.f32 %0, [%1];" : "=f"(v) : "l"(p));
-  return v;
-}
+constexpr int kMaxThreads = 1024;
 
-constexpr int kSmemThreads = 256;
+// kernels.probes.stream_plan as the starts of its slices: slice i is
+// [start[i], start[i + 1]).  Passed by value, as a kernel parameter.
+constexpr int kMaxSlices = 256;
+struct StreamPlan {
+  int64_t start[kMaxSlices + 1];
+};
 
-__global__ void smem_copy_kernel(const float4* __restrict__ a,
-                                 float4* __restrict__ out, int n4, int passes,
-                                 int reps) {
-  __shared__ float4 tile[kSmemThreads];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n4) return;
-  const float4 staged = scale4(a[i]);
+// Block i stages slice i of `plan` (float4 vectors), one vector a thread.
+__global__ void __launch_bounds__(kMaxThreads)
+    smem_copy_kernel(const float4* __restrict__ a, float4* __restrict__ out,
+                     int passes, int reps, const StreamPlan plan) {
+  __shared__ float4 tile[kMaxThreads];
+  const int end = (int)plan.start[blockIdx.x + 1];
   const unsigned addr =
       static_cast<unsigned>(__cvta_generic_to_shared(&tile[threadIdx.x]));
-  float4 r = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int pass = 0; pass < passes; ++pass) {
-    for (int k = 0; k < reps; ++k) {
-      sts4(addr, staged);
-      r = lds4(addr);
+  for (int i = (int)plan.start[blockIdx.x] + threadIdx.x; i < end;
+       i += blockDim.x) {
+    const float4 staged = scale4(a[i]);
+    float4 r = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int pass = 0; pass < passes; ++pass) {
+      for (int k = 0; k < reps; ++k) {
+        sts4(addr, staged);
+        r = lds4(addr);
+      }
     }
+    out[i] = scale4(r);
   }
-  out[i] = scale4(r);
 }
 
 constexpr int kStepBatch = 8;  // loads a lane has in flight
@@ -209,13 +232,6 @@ __device__ __forceinline__ void bulk_load(unsigned dst, const void* src,
       : "memory");
 }
 
-// kernels.probes.stream_plan as the starts of its slices: slice i is
-// [start[i], start[i + 1]).  Passed by value, as a kernel parameter.
-constexpr int kMaxSlices = 256;
-struct StreamPlan {
-  int64_t start[kMaxSlices + 1];
-};
-
 // a: (G, n8) uint4 vectors of 8 bf16; out: (n8) pairs of float4.  Block i
 // sums slice i of `plan`, one block a slice.
 __global__ void __launch_bounds__(kStreamThreads, 1)
@@ -294,35 +310,167 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
   }
 }
 
-// grid (ceil(W / blockDim.x), qv): one thread per output element of the
-// first qv rows; out is zeroed by the caller.
-__global__ void dyn_slice_kernel(const float* __restrict__ a,
-                                 float* __restrict__ out, int H, int W, int qv,
-                                 int steps, int n_offsets) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y;
-  if (c >= W) return;
-  float acc = 0.0f;
-  for (int step = 0; step < steps; ++step) {
-    for (int k = 0; k < n_offsets; ++k) {
-      const int q = ((k * 29) % (H - qv)) / 8 * 8;
-      acc = __fadd_rn(acc, ld_keep(a + (int64_t)(q + r) * W + c));
+__device__ __forceinline__ float4 add4(float4 acc, float4 v) {
+  return make_float4(__fadd_rn(acc.x, v.x), __fadd_rn(acc.y, v.y),
+                     __fadd_rn(acc.z, v.z), __fadd_rn(acc.w, v.w));
+}
+
+// 16 bytes from global to shared memory, asynchronously (L2 only).
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src)
+               : "memory");
+}
+
+// dyn_slice's offsets as byte offsets into a strip's staged rows, and the
+// first item of each block (kernels.probes.dyn_slice_plan).  By value.
+constexpr int kMaxOffsets = 512;
+constexpr int kGroup = 4;  // dyn_slice: loads a thread issues ahead of its adds
+struct DynSlicePlan {
+  int off[kMaxOffsets];  // (q_k - q_min) * strip * 16
+  int start[kMaxSlices + 1];
+};
+
+// The outputs of a strip, `strip` float4 a row over qv rows, are numbered
+// row by row; strip s's first is s * qv * strip.  Item i is band
+// i % n_bands of strip i / n_bands, so a run of items is a run of outputs.
+__device__ __forceinline__ int item_output(int i, int n_bands,
+                                                    int band, int qv,
+                                                    int strip) {
+  return (i / n_bands * qv + i % n_bands * band) * strip;
+}
+
+// Block b runs items start[b] .. start[b + 1] - 1, `batch` at a time.  A
+// batch is the outputs [o0, o1) over strips s0 .. s0 + n_seg - 1; for each
+// strip it stages the rows [lo + q_min, hi + q_min + span) that its rows
+// [lo, hi) reach, one segment after the other, so that thread t, which
+// owns output o0 + t of segment s, reads its offset k at float4
+// t + s * span * strip + (q_k - q_min) * strip.  kernels.probes.DynSlicePlan
+// states the same rule (`staged`) to size the shared memory it passes.
+__global__ void __launch_bounds__(kMaxThreads)
+    dyn_slice_kernel(const float* __restrict__ a, float* __restrict__ out,
+                     int H, int W, int qv, int steps, int n_off, int strip,
+                     int band, int n_bands, int q_min, int span, int batch,
+                     const DynSlicePlan plan) {
+  extern __shared__ __align__(16) float4 slots[];
+  const int W4 = (W + 3) / 4;
+  const bool vec = W % 4 == 0;  // every row starts on 16 bytes
+  const int per_strip = qv * strip, t = threadIdx.x;
+  const int i0 = plan.start[blockIdx.x], i1 = plan.start[blockIdx.x + 1];
+  // Rows from qv on are zero; every block writes its share, once.
+  {
+    const int64_t first = (int64_t)qv * W, n = (int64_t)(H - qv) * W;
+    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + t;
+    if (vec) {
+      float4* o = reinterpret_cast<float4*>(out + first);
+      for (int64_t k = i; k < n / 4; k += stride)
+        o[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    } else {
+      for (int64_t k = i; k < n; k += stride) out[first + k] = 0.0f;
     }
   }
-  out[(int64_t)r * W + c] = acc;
+  for (int b0 = i0; b0 < i1; b0 += batch) {
+    const int o0 = item_output(b0, n_bands, band, qv, strip);
+    const int o1 = item_output(min(b0 + batch, i1), n_bands, band, qv, strip);
+    const int s0 = o0 / per_strip, n_seg = (o1 - 1) / per_strip - s0 + 1;
+    // Stage: segment by segment, thread t copies float4 t % strip of every
+    // (blockDim / strip)-th row.
+    const int pass = blockDim.x / strip, cc = t % strip;
+    int slot = 0;  // the segment's first float4 in shared memory
+    for (int s = 0; s < n_seg; ++s) {
+      const int lo = s == 0 ? o0 % per_strip / strip : 0;
+      const int hi = s == n_seg - 1 ? (o1 - 1) % per_strip / strip + 1 : qv;
+      const int c4 = (s0 + s) * strip + cc, rows = hi - lo + span;
+      const float* src = a + (int64_t)(lo + q_min) * W + 4 * c4;
+      float4* dst = slots + slot + cc;
+      for (int row = t / strip; t < pass * strip && c4 < W4 && row < rows;
+           row += pass) {
+        if (vec) {
+          cp_async16(smem_addr(dst + row * strip), src + (int64_t)row * W);
+        } else {
+          const float* g = src + (int64_t)row * W;
+          float e[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) e[k] = 4 * c4 + k < W ? g[k] : 0.0f;
+          dst[row * strip] = make_float4(e[0], e[1], e[2], e[3]);
+        }
+      }
+      slot += rows * strip;
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+    const int o = o0 + t, s = o / per_strip - s0, c = o % strip;
+    const int row = o % per_strip / strip, c4 = (s0 + s) * strip + c;
+    if (o < o1 && c4 < W4) {
+      const unsigned base = smem_addr(slots + t + s * span * strip);
+      // The steps x n_off terms in order, offset k wrapping at n_off; the
+      // loads of the next kGroup terms are issued before the adds of the
+      // current ones, so a warp keeps up to 2 kGroup loads in flight.
+      const int n_terms = steps * n_off;
+      int k = 0;
+      auto next = [&]() {
+        const float4 v = lds4(base + plan.off[k]);
+        k = k + 1 == n_off ? 0 : k + 1;
+        return v;
+      };
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f), cur[kGroup];
+      int i = 0;
+      if (n_terms >= kGroup) {
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) cur[g] = next();
+        for (i = kGroup; i + kGroup <= n_terms; i += kGroup) {
+          float4 nxt[kGroup];
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g) nxt[g] = next();
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g) {
+            acc = add4(acc, cur[g]);
+            cur[g] = nxt[g];
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) acc = add4(acc, cur[g]);
+      }
+      for (; i < n_terms; ++i) acc = add4(acc, next());
+      float* dst = out + (int64_t)row * W + 4 * c4;
+      if (vec) {
+        *reinterpret_cast<float4*>(dst) = acc;
+      } else {
+        const float e[4] = {acc.x, acc.y, acc.z, acc.w};
+        for (int k = 0; k < 4 && 4 * c4 + k < W; ++k) dst[k] = e[k];
+      }
+    }
+    __syncthreads();  // the next batch overwrites the slots
+  }
 }
 
 }  // namespace
 
 // a, out: n floats, n % 4 == 0, 16-byte aligned.  passes, reps >= 1.
+// starts: n_slices + 1 offsets in float4 vectors, from 0 to n / 4, increasing
+// (kernels.probes.stream_plan); one block a slice, as many threads as the
+// longest slice has vectors (rounded up to a warp, at most 1,024).
 extern "C" int smem_copy(const float* a, float* out, int n, int passes,
-                         int reps, void* stream) {
+                         int reps, int n_slices, const int64_t* starts,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n4 = n / 4;
-  if (n4 > 0)
-    smem_copy_kernel<<<(n4 + kSmemThreads - 1) / kSmemThreads, kSmemThreads, 0,
-                       s>>>(reinterpret_cast<const float4*>(a),
-                            reinterpret_cast<float4*>(out), n4, passes, reps);
+  if (n4 < 1) return (int)cudaGetLastError();
+  if (n_slices < 1 || n_slices > kMaxSlices || starts[0] != 0 ||
+      starts[n_slices] != n4)
+    return (int)cudaErrorInvalidValue;
+  StreamPlan plan;
+  int64_t longest = 0;
+  for (int i = 0; i <= n_slices; ++i) {
+    if (i > 0 && starts[i] <= starts[i - 1]) return (int)cudaErrorInvalidValue;
+    if (i > 0) longest = std::max(longest, starts[i] - starts[i - 1]);
+    plan.start[i] = starts[i];
+  }
+  const int threads =
+      (int)std::min<int64_t>(kMaxThreads, (longest + 31) / 32 * 32);
+  smem_copy_kernel<<<n_slices, threads, 0, s>>>(
+      reinterpret_cast<const float4*>(a), reinterpret_cast<float4*>(out),
+      passes, reps, plan);
   return (int)cudaGetLastError();
 }
 
@@ -358,15 +506,55 @@ extern "C" int hbm_stream(const void* a, float* out, int G, int64_t n,
   return (int)cudaGetLastError();
 }
 
-// a, out: (H, W) f32, out zeroed; qv < H.
+// a, out: (H, W) f32, 16-byte aligned; 0 < qv < H, W > 0, steps >= 1.
+// offsets: n_offsets row offsets q in [0, H - qv].  strip, band: an item's
+// float4 columns and output rows; batch: items a block stages at once;
+// smem_bytes: the most a batch stages; starts: n_blocks + 1 item indices
+// from 0 to the item count, increasing (kernels.probes.dyn_slice_plan,
+// which sizes smem_bytes by the kernel's staging rule).  One launch writes
+// every value of `out`.
 extern "C" int dyn_slice(const float* a, float* out, int H, int W, int qv,
-                         int steps, int n_offsets, void* stream) {
+                         int steps, int n_offsets, const int* offsets,
+                         int strip, int band, int batch, int smem_bytes,
+                         int n_blocks, const int* starts, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (W > 0 && qv > 0) {
-    const int threads = 128;
-    const dim3 grid((W + threads - 1) / threads, qv);
-    dyn_slice_kernel<<<grid, threads, 0, s>>>(a, out, H, W, qv, steps,
-                                              n_offsets);
+  constexpr int kMaxSmem = 232448;  // 227 KB, what a block may use
+  if (W < 1 || qv < 1 || qv >= H || steps < 1 || n_offsets < 1 ||
+      n_offsets > kMaxOffsets || (int64_t)steps * n_offsets > INT32_MAX ||
+      strip < 1 || band < 1 || band > qv || batch < 1 || n_blocks < 1 ||
+      n_blocks > kMaxSlices || smem_bytes < 16 || smem_bytes > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  int q_min = H, q_max = 0;
+  for (int k = 0; k < n_offsets; ++k) {
+    if (offsets[k] < 0 || offsets[k] > H - qv)
+      return (int)cudaErrorInvalidValue;
+    q_min = std::min(q_min, offsets[k]);
+    q_max = std::max(q_max, offsets[k]);
   }
+  const int span = q_max - q_min, n_bands = (qv + band - 1) / band;
+  const int n_items = ((W + 3) / 4 + strip - 1) / strip * n_bands;
+  const int threads = (batch * strip * band + 31) / 32 * 32;
+  if (threads > kMaxThreads || starts[0] != 0 || starts[n_blocks] != n_items)
+    return (int)cudaErrorInvalidValue;
+  DynSlicePlan plan;
+  for (int k = 0; k < n_offsets; ++k)
+    plan.off[k] = (offsets[k] - q_min) * strip * 16;
+  for (int i = 0; i <= n_blocks; ++i) {
+    if (i > 0 && starts[i] <= starts[i - 1]) return (int)cudaErrorInvalidValue;
+    plan.start[i] = starts[i];
+  }
+  // Above 48 KB a block's shared memory needs an opt-in, which holds for
+  // the current device only: made at each such launch, so that every card
+  // of the process has it (it is not a stream operation, so a CUDA graph's
+  // capture may include the call).
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dyn_slice_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dyn_slice_kernel<<<n_blocks, threads, smem_bytes, s>>>(
+      a, out, H, W, qv, steps, n_offsets, strip, band, n_bands, q_min, span,
+      batch, plan);
   return (int)cudaGetLastError();
 }

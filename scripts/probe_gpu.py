@@ -4,7 +4,8 @@ Four probe kernels (dvs_mcemvs_torch/kernels/probes.py, csrc/probes.cu) at
 the TPU probes' shapes separate the resources a kernel of this repo can be
 bound by, plus the host link:
 
-  1. smem copy:   shared-memory bandwidth (TPU: VMEM round trip, run_c)
+  1. smem copy:   shared-memory bandwidth and its share of the on-chip
+                  ceiling (TPU: VMEM round trip, run_c)
   2. block step:  the device's launch latency (one block), the cost of a
                   one-warp block (the slope from 4,096 to 65,536 blocks),
                   torch.add on the same tile, and the host's cost of one
@@ -13,7 +14,8 @@ bound by, plus the host link:
   3. hbm stream:  device-memory read bandwidth over 576 x 896 bf16 blocks
                   (~1 MB each; TPU: run_f), its share of 3.35 TB/s, and
                   torch.sum over the same stream
-  4. dyn slice:   loads at computed row offsets from an L2-resident array
+  4. dyn slice:   16-byte loads at computed row offsets from rows staged in
+                  shared memory, and their share of the on-chip ceiling
                   (TPU: dynamic-slice traffic, run_d)
   5. host link:   pageable and pinned host -> device copies, device -> host
                   copies, at 1, 4 and 16 MB
@@ -21,8 +23,12 @@ bound by, plus the host link:
 A device time is the card's alone: after a warm-up, calls captured into one
 CUDA graph (as many as fill a third of `--min-time`, at most 1,000) are
 replayed between two CUDA events, best of three replays.  Host times are
-loops timed to `--min-time` by the host clock.  Every line ends with the
-card's name and power limit.  Without a CUDA device it raises.
+loops timed to `--min-time` by the host clock.  The on-chip ceiling of the
+two shared-memory probes is the bytes each is defined to move through
+shared memory over the SMs' ports, 128 bytes a clock an SM, at the card's
+top SM clock (`nvidia-smi` clocks.max.sm; the clock read after the probe,
+clocks.sm, is printed beside it).  Every line ends with the card's name and
+power limit.  Without a CUDA device it raises.
 
 `--root DIR` times the probes of the port in DIR (a checkout or a `git
 archive` of another commit; its kernels build under DIR/build/) by this
@@ -51,6 +57,7 @@ G = 256           # blocks of the HBM stream
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 STEP_BLOCKS = (1, 4096, 65536)   # block_step: one block, ~one wave, ~16 waves
 MAX_GRAPH_CALLS = 1000
+SMEM_BYTES_PER_CLOCK = 128       # an SM's shared-memory port (Hopper white paper)
 
 
 def nvidia_smi_line() -> str:
@@ -58,6 +65,33 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def sm_clocks_mhz() -> tuple:
+    """(the SM clock now, the top SM clock) of the first card, MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    now, top = out.strip().splitlines()[0].split(",")
+    return float(now), float(top)
+
+
+def ceiling_ms(onchip_bytes: float, n_sms: int, mhz: float) -> float:
+    """The least time to move `onchip_bytes` through the SMs' shared-memory
+    ports at `mhz`."""
+    return onchip_bytes / (n_sms * SMEM_BYTES_PER_CLOCK * mhz * 1e6) * 1e3
+
+
+def smem_copy_bytes(n: int, passes: int, reps: int) -> int:
+    """smem_copy's shared-memory traffic over n floats: a 16-byte store and
+    a 16-byte load a vector, passes x reps times."""
+    return passes * reps * n * 4 * 2
+
+
+def dyn_slice_bytes(w: int, qv: int, n_offsets: int, steps: int) -> int:
+    """dyn_slice's loads from shared memory: a row of qv x w floats an
+    offset and step."""
+    return steps * n_offsets * qv * w * 4
 
 
 def cuda_graph_ms(fn, min_time: float) -> float:
@@ -120,10 +154,21 @@ def measure(min_time: float = 1.5, log=print) -> dict:
         res[key] = value
         log(f"{text}  [{smi}]")
 
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def onchip(key, what, onchip_bytes, ms):
+        now, top = sm_clocks_mhz()
+        ceiling = ceiling_ms(onchip_bytes, n_sms, top)
+        res[f"{key}_ms"], res[f"{key}_ceiling_ms"] = ms, ceiling
+        emit(f"{key}_tb_s", onchip_bytes / ms / 1e9,
+             f"{what}: {onchip_bytes / ms / 1e9:.3f} TB/s ({ms:.4f} ms), {ceiling / ms:.1%} "
+             f"of the on-chip ceiling {ceiling:.4f} ms ({n_sms} SMs x "
+             f"{SMEM_BYTES_PER_CLOCK} B a clock at {top:.0f} MHz; SM clock read after it "
+             f"{now:.0f} MHz)")
+
     a32 = torch.ones((1, H, W), dtype=torch.float32, device=dev)
-    ms = cuda_graph_ms(lambda: probes.smem_copy(a32), min_time)
-    smem_bytes = probes.PASSES * probes.REPS * H * W * 4 * 2   # a store and a load
-    emit("smem_tb_s", smem_bytes / ms / 1e9, f"smem copy: {smem_bytes / ms / 1e9:.3f} TB/s")
+    onchip("smem", "smem copy", smem_copy_bytes(H * W, probes.PASSES, probes.REPS),
+           cuda_graph_ms(lambda: probes.smem_copy(a32), min_time))
 
     tile = torch.ones((1, 8, 128), dtype=torch.float32, device=dev)
     step_us = {n: cuda_graph_ms(lambda: probes.block_step(tile, n), min_time) * 1e3
@@ -164,10 +209,9 @@ def measure(min_time: float = 1.5, log=print) -> dict:
          f"torch.sum over the same stream: {read / ms / 1e6:.1f} GB/s ({ms:.4f} ms)")
     del big
 
-    ms = cuda_graph_ms(lambda: probes.dyn_slice(a32), min_time)
-    dyn_bytes = probes.STEPS * probes.N_OFFSETS * probes.QV * W * 4   # bytes loaded
-    emit("dyn_slice_tb_s", dyn_bytes / ms / 1e9,
-         f"dyn slice: {dyn_bytes / ms / 1e9:.3f} TB/s loaded at computed offsets")
+    onchip("dyn_slice", "dyn slice: loads at computed offsets",
+           dyn_slice_bytes(W, probes.QV, probes.N_OFFSETS, probes.STEPS),
+           cuda_graph_ms(lambda: probes.dyn_slice(a32), min_time))
 
     for mb in (1, 4, 16):
         host = torch.ones(mb * 2**20 // 4, dtype=torch.float32)

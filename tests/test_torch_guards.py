@@ -145,6 +145,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     assert sorted(n for n, r in res.items() if r["timer"] == "loop") == [
         "banded_resample_fanin", "banded_resample_sum", "bin_events_int8"]
     assert all("loop_ms" in r for r in res.values())
+    # The on-chip ceiling needs the card's SM clock: none on the CPU.
+    assert all(r["ceiling_ms"] is None and r["ceiling_share"] is None for r in res.values())
     workload = chip_smoke.build_workload(cpu, n_events=16384, width=96, height=64,
                                          dim_z=20, n_pts=2000)
     with pytest.raises(AssertionError, match="not launched"):

@@ -70,6 +70,18 @@ Phases (each raises on failure, so the script exits non-zero):
                 processes (--coordinator, --num_processes=2, --process_id) on
                 the esim fixture under process_method 1 and 2, against the
                 same run in one process.
+ 11. host API and scripts -- (a) `voting.vote_dsi` on the headline chunk's
+                warped packets under the headline spec, equal to
+                `mapper.evaluate_dsi` (kernels A and B launched); (b) the
+                synthetic demo (scripts/synthetic_demo_torch.py) in this
+                process under the headline spec and `scatter`, each against
+                the same demo on the CPU; (c) the grid extras (the fusions,
+                collapse_min, statistics, local-focus HM, 3D filters, Moran's
+                I) on the headline fused and camera DSIs, the card against
+                the CPU; (d) scripts/evaluate_dsec_torch.py on the CLI's
+                fused depth maps against evaluate_sequence; (e) the
+                golden probe's five specs on BENCH16 (scored, not gated);
+                (f) the butterfly probe, the card against the CPU.
 Each phase logs its seconds; the line before the two result lines gives
 the total and each phase's share.
 Phase 3 also holds kernels A and B against their plain versions past the
@@ -230,12 +242,12 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 @functools.lru_cache(maxsize=None)
-def probe_gpu():
-    """scripts/probe_gpu.py as a module."""
+def script(name: str):
+    """scripts/<name>.py as a module."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "probe_gpu", os.path.join(HERE, "scripts", "probe_gpu.py"))
+        name, os.path.join(HERE, "scripts", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -246,7 +258,7 @@ def cuda_graph_ms(fn) -> float:
     `cuda_graph_ms` (calls captured in one CUDA graph, best of three
     replays).  `fn` must not wait for the card (a host sync inside a capture
     raises).  A wrapper counts its launches when they are captured."""
-    return probe_gpu().cuda_graph_ms(fn, GRAPH_SECONDS)
+    return script("probe_gpu").cuda_graph_ms(fn, GRAPH_SECONDS)
 
 
 def timings(run, plain, library=None, *, iters: int, plain_iters: int = 2,
@@ -867,16 +879,16 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
     for r in results.values():
         r.update(ceiling_ms=None, ceiling_share=None)
     if dev.type == "cuda":
-        onchip = {"smem_copy": probe_gpu().smem_copy_bytes(a32.numel(), probes.PASSES,
-                                                           probes.REPS),
-                  "dyn_slice": probe_gpu().dyn_slice_bytes(probe_w, probes.QV,
-                                                           probes.N_OFFSETS, probes.STEPS)}
-        now, top = probe_gpu().sm_clocks_mhz()
+        gpu = script("probe_gpu")
+        onchip = {"smem_copy": gpu.smem_copy_bytes(a32.numel(), probes.PASSES, probes.REPS),
+                  "dyn_slice": gpu.dyn_slice_bytes(probe_w, probes.QV, probes.N_OFFSETS,
+                                                   probes.STEPS)}
+        now, top = gpu.sm_clocks_mhz()
         n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
         log(f"  SM clock {now:.0f} MHz after the probes' timing, top {top:.0f} MHz; "
             f"{n_sms} SMs")
         for name, onchip_bytes in onchip.items():
-            ceiling = probe_gpu().ceiling_ms(onchip_bytes, n_sms, top)
+            ceiling = gpu.ceiling_ms(onchip_bytes, n_sms, top)
             results[name].update(ceiling_ms=ceiling,
                                  ceiling_share=ceiling / results[name]["ms"])
     results["hbm_stream"]["max_abs_err"] = max(
@@ -1259,7 +1271,7 @@ def probe_phase(min_time=0.2):
     """scripts/probe_gpu.py's measurement with fresh launch counters.
     Returns (its numbers, the launch counts of its run)."""
     zero_counts()
-    res = probe_gpu().measure(min_time, log=lambda msg: log("  " + msg))
+    res = script("probe_gpu").measure(min_time, log=lambda msg: log("  " + msg))
     return res, read_counts()
 
 
@@ -1966,6 +1978,332 @@ def distributed_phase(dev, workload, spec=HEADLINE_SPEC, runs=DIST_RUNS, rank_si
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the host API and the user scripts
+# ---------------------------------------------------------------------------
+
+# vote_dsi against mapper.evaluate_dsi on the same packets: relative L1.
+VOTE_DSI_REL = 1e-7
+# The synthetic demo on the card against the same demo on the CPU: the
+# same verdict, every count of its report (pixels, points) equal to the
+# CPU's and every error within DEMO_REL of the CPU's, relative.  The CPU run is
+# held to the JAX demo's report by tests/test_torch_scripts.py.
+DEMO_SPECS = (HEADLINE_SPEC, "scatter")
+DEMO_REL = 0.01
+# Grid extras, the card against the CPU (tests/test_torch_grid_extras.py's
+# tolerances against the JAX package): elementwise rtol / atol; statistics
+# and local focus relative; 3D filters as a share of max |input|; Moran's
+# I absolute; collapse_min's indices equal on this share of the pixels.
+GRID_RTOL, GRID_ATOL = 1e-6, 1e-7
+GRID_STAT_REL, GRID_FILTER_REL, GRID_MORAN_ABS = 1e-5, 1e-5, 1e-4
+GRID_EQUAL = 0.999
+# evaluate_dsec_torch.py against evaluate_sequence in process.
+EVAL_ABS = 1e-12
+# The butterfly probe: each spec's card-against-CPU relative L1 (phase 6's).
+BF_CARD_VS_CPU = DEVICE_VS_CPU_L1
+# evaluate_dsec's run: full_seq windows of the esim fixture, one fused
+# depth map each (several frames to match and consolidate).
+EVAL_WINDOWS = ["--full_seq", "--start_time_s=0", "--stop_time_s=1", "--duration=0.3",
+                "--out_skip=0.25"]
+
+
+def _rel_l1(got: torch.Tensor, want: torch.Tensor) -> float:
+    g, w = got.double().cpu(), want.double().cpu()
+    return float((g - w).abs().sum() / w.abs().sum().clamp(min=1e-30))
+
+
+def vote_dsi_step(dev, workload, spec=HEADLINE_SPEC, needed=KERNELS_A_B) -> dict:
+    """`voting.vote_dsi` on each camera's warped packets of the headline
+    chunk (bucket-padded, at process_1's reference view) against
+    `mapper.evaluate_dsi` on the same events; the kernels of `needed`
+    launched by vote_dsi.  Returns {camera: relative L1}."""
+    from dvs_mcemvs_torch import mapper as mappermod, pipeline
+    from dvs_mcemvs_torch.ops import voting
+
+    mappers, events, trajs, _ = workload
+    T_rv_w = pipeline.place_reference_view(trajs[0], 0.5)
+    out = {}
+    for c, (m, ev, trj) in enumerate(zip(mappers, events, trajs)):
+        packets, _, _ = mappermod.warp_chunk(m, ev, trj, T_rv_w, PACKET, "device", "bucket")
+        zero_counts()
+        t0 = time.perf_counter()
+        got = voting.vote_dsi(packets, m.depth_vec.depths(), m.vcam, backend=spec)
+        _sync(dev)
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        launches = {n: counts[n] for n in KERNELS_A_B}
+        want = mappermod.evaluate_dsi(m, ev, trj, T_rv_w, PACKET, backend=spec, pad="bucket")
+        rel = _rel_l1(got, want)
+        log(f"  (a) vote_dsi camera{c} {spec}: {seconds:.3f} s, launches {launches}, "
+            f"relative L1 against evaluate_dsi {rel:.3g}")
+        if tuple(got.shape) != m.dsi_shape or rel > VOTE_DSI_REL:
+            raise AssertionError(f"vote_dsi camera{c}: shape {tuple(got.shape)}, L1 {rel}")
+        _check_launched(f"vote_dsi camera{c}", launches, needed)
+        out[f"camera{c}"] = rel
+    return out
+
+
+def _run_demo(argv) -> tuple:
+    """scripts/synthetic_demo_torch.py's main(argv) in this process:
+    (exit code, report, seconds)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = script("synthetic_demo_torch").main(argv)
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    report = json.loads(next(ln for ln in lines if ln.startswith("{")))
+    if lines[-1] != ("PASS" if rc == 0 else "FAIL"):
+        raise AssertionError(f"demo: exit {rc} but verdict {lines[-1]!r}")
+    return rc, report, seconds
+
+
+def demo_step(dev, specs=DEMO_SPECS, needed=KERNELS_A_B) -> dict:
+    """The synthetic demo on the card under each spec (the hist specs must
+    launch the kernels of `needed`), against the demo on the CPU: the same
+    verdict, the same counts and every error within DEMO_REL.  The exact
+    scatter must PASS.  Returns {spec: (exit code, report, seconds)}."""
+    out = {}
+    for spec in specs:
+        zero_counts()
+        rc, report, seconds = _run_demo(["--backend", spec,
+                                         "--device", "cuda" if dev.type == "cuda" else "cpu"])
+        counts = read_counts()
+        launches = {n: counts[n] for n in KERNELS_A_B}
+        cpu_rc, cpu_report, cpu_seconds = _run_demo(["--backend", spec, "--device", "cpu"])
+        log(f"  (b) demo {spec}: {'PASS' if rc == 0 else 'FAIL'} in {seconds:.3f} s, "
+            f"launches {launches}: {json.dumps(report)}")
+        log(f"      the CPU: {'PASS' if cpu_rc == 0 else 'FAIL'} in {cpu_seconds:.3f} s: "
+            f"{json.dumps(cpu_report)}")
+        off = [k for k, v in cpu_report.items()
+               if (isinstance(v, int) and report[k] != v)
+               or (isinstance(v, float) and not abs(report[k] - v) <= DEMO_REL * abs(v))]
+        if rc != cpu_rc or off:
+            raise AssertionError(f"demo {spec}: the card disagrees with the CPU on {off}")
+        if spec == "scatter" and rc != 0:
+            raise AssertionError("demo scatter: FAIL")
+        if spec.startswith("hist"):
+            _check_launched(f"demo {spec}", launches, needed)
+        out[spec] = (rc, report, seconds)
+    return out
+
+
+def _grid_checks():
+    """(name, call on (fused, camera0, camera1), kind) of every grid extra."""
+    from dvs_mcemvs_torch.ops import grid
+
+    def two(name, **kw):
+        return lambda g, a, b: getattr(grid, name)(a, b, **kw)
+
+    def one(name, *args):
+        return lambda g, a, b: getattr(grid, name)(g, *args)
+
+    return [
+        ("fuse_add", two("fuse_add"), "elementwise"),
+        ("fuse_subtract", two("fuse_subtract"), "elementwise"),
+        ("fuse_ratio", two("fuse_ratio"), "elementwise"),
+        ("fuse_quadratic_mean", two("fuse_quadratic_mean"), "elementwise"),
+        ("fuse_cubic_mean", two("fuse_cubic_mean"), "elementwise"),
+        ("add_inverse", two("add_inverse"), "elementwise"),
+        ("collapse_min", one("collapse_min"), "collapse"),
+        ("mean_square", one("mean_square"), "stat"),
+        ("min_max", one("min_max"), "stat"),
+        ("mean_std", one("mean_std"), "stat"),
+        ("hm_local_focus-0", two("fuse_harmonic_mean_of_local_focus", focus_method=0), "focus"),
+        ("hm_local_focus-1", two("fuse_harmonic_mean_of_local_focus", focus_method=1), "focus"),
+        ("laplacian3d", one("laplacian3d"), "filter"),
+        ("diffuse-sigma1", one("diffuse", 1.0), "filter"),
+        ("gaussian_blur_3d-sigma1", one("gaussian_blur_3d", 1.0), "filter"),
+        ("moran_index-sigma1", one("moran_index_gaussian_weights", 1.0), "moran"),
+    ]
+
+
+def grid_extras_step(dev, fused_cpu, cams_cpu) -> dict:
+    """Every grid extra on the headline chunk's fused DSI (one-grid ops) or
+    its two camera DSIs (two-grid ops), on the card against the CPU, with
+    the tolerances above; seconds and peak device memory each.  Returns
+    {name: (seconds, error)}."""
+    on_dev = [t.to(dev) for t in (fused_cpu, *cams_cpu)]
+    scale = float(fused_cpu.abs().max())
+    out = {}
+    for name, fn, kind in _grid_checks():
+        _sync(dev)
+        _reset_peak(dev)
+        t0 = time.perf_counter()
+        got = fn(*on_dev)
+        _sync(dev)
+        seconds = time.perf_counter() - t0
+        peak = _peak(dev)
+        want = fn(fused_cpu, *cams_cpu)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        got = [g.cpu().double() for g in got]
+        want = [w.double() for w in want]
+        if kind == "elementwise":
+            g, w = got[0], want[0]
+            err = float((g - w).abs().max())
+            ok = bool(((g - w).abs() <= GRID_ATOL + GRID_RTOL * w.abs()).all())
+        elif kind == "collapse":
+            err = float((got[1] == want[1]).double().mean())
+            ok = err >= GRID_EQUAL and bool((got[0] == want[0]).all())
+        elif kind in ("stat", "focus"):
+            err = max(float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+                      for g, w in zip(got, want))
+            ok = err <= GRID_STAT_REL
+        elif kind == "filter":
+            err = float((got[0] - want[0]).abs().max()) / scale
+            ok = err <= GRID_FILTER_REL
+        else:
+            err = abs(float(got[0]) - float(want[0]))
+            ok = err <= GRID_MORAN_ABS
+        log(f"  (c) {name}: {seconds:.4f} s on the card, peak device memory {peak}; "
+            f"{'equal indices' if kind == 'collapse' else 'error'} {err:.3g}"
+            + (f" (I = {float(got[0]):.6f})" if kind == "moran" else ""))
+        if not ok:
+            raise AssertionError(f"grid extra {name}: the card disagrees with the CPU ({err})")
+        out[name] = (seconds, err)
+    return out
+
+
+def evaluate_dsec_step(dev, workdir) -> dict:
+    """The port's CLI (process_1 over EVAL_WINDOWS) on the esim fixture,
+    then scripts/evaluate_dsec_torch.py by subprocess on its fused
+    depth-point files against per-frame ground truth from
+    `synthetic.ground_truth_depth`; its JSON must equal
+    `eval.dsec.evaluate_sequence` in process to EVAL_ABS, over every depth
+    file, and there must be more than one.  Returns the script's report."""
+    from dvs_mcemvs_torch import cli
+    from dvs_mcemvs_torch.eval import dsec
+    from dvs_mcemvs_torch.ops.camera import virtual_camera
+    from dvs_mcemvs_torch.utils import synthetic
+
+    rig = synthetic.esim_like_rig(travel=0.4)
+    paths = synthetic.write_fixture(os.path.join(workdir, "data"), rig=rig)
+    run_dir = os.path.join(workdir, "run")
+    flagfile = os.path.join(HERE, "configs", "synthetic", "esim_stereo.conf")
+    rc = cli.main([f"--flagfile={flagfile}", f"--bag_filename_left={paths['events0']}",
+                   f"--bag_filename_right={paths['events1']}",
+                   f"--bag_filename_pose={paths['poses']}",
+                   f"--platform={'cuda' if dev.type == 'cuda' else 'cpu'}",
+                   f"--out_path={run_dir}/", "--process_method=1", *EVAL_WINDOWS,
+                   "--nosave_pointcloud"])
+    if rc != 0:
+        raise AssertionError(f"evaluate_dsec: the CLI exited {rc}")
+    cam = rig.cam
+    vcam = virtual_camera(cam.width, cam.height, 0.0, cam)
+    shape = (cam.height, cam.width)
+    evaluator = script("evaluate_dsec_torch")
+    rig_eval = dsec.DsecEvalRig(Q=np.eye(4), T_rect0_0=np.eye(4),
+                                K_target=np.array([[cam.fx, 0, cam.cx], [0, cam.fx, cam.cy],
+                                                   [0, 0, 1.0]]), baseline=rig.baseline)
+    frames = evaluator.find_run_frames(run_dir, "fused")
+    gt_dir = os.path.join(workdir, "gt")
+    os.makedirs(gt_dir)
+    est_maps, gt_maps = [], []
+    for k, (t, path) in enumerate(frames):
+        pts = np.atleast_2d(np.loadtxt(path)).reshape(-1, 3)
+        xs, ys = pts[:, 0].astype(int), pts[:, 1].astype(int)
+        gt = np.zeros(shape)
+        gt[ys, xs] = synthetic.ground_truth_depth(
+            rig, vcam, float(rig.camera_position(t)[0]), xs, ys, pts[:, 2])
+        np.save(os.path.join(gt_dir, f"{k:06d}.npy"), gt)
+        est_maps.append(dsec.load_depth_points(path, shape))
+        gt_maps.append(np.ma.array(gt, mask=(gt < 0.05)))
+    ts_file = os.path.join(workdir, "ts.txt")
+    np.savetxt(ts_file, np.array([t * 1e6 for t, _ in frames]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(HERE, "scripts", "evaluate_dsec_torch.py"),
+         "--run_dir", run_dir, "--suffix", "fused", "--gt_timestamps", ts_file,
+         "--gt_depth_npy_dir", gt_dir, "--width", str(cam.width),
+         "--height", str(cam.height), "--fx", str(cam.fx), "--cx", str(cam.cx),
+         "--cy", str(cam.cy), "--baseline", str(rig.baseline)],
+        capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"evaluate_dsec_torch.py: {proc.stderr[-2000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = dsec.evaluate_sequence(est_maps, gt_maps, rig_eval)
+    want_flat = {"mean_err": float(want["mean_err"]),
+                 "median_err": float(want["median_err"]),
+                 **{k: float(v) for k, v in want["metrics"].as_dict().items()}}
+    off = {k: (report[k], v) for k, v in want_flat.items()
+           if not abs(report[k] - v) <= EVAL_ABS}
+    err = max(abs(report[k] - v) for k, v in want_flat.items())
+    log(f"  (d) evaluate_dsec_torch.py --suffix fused: {seconds:.2f} s, "
+        f"{report['frames_evaluated']} of {len(frames)} frames (t = "
+        f"{', '.join(f'{t:.3f}' for t in report['times'])} s), mean_err "
+        f"{report['mean_err']:.6f} m, median_err {report['median_err']:.6f} m; "
+        f"largest difference from evaluate_sequence {err:.3g}")
+    if off or len(frames) < 2 or report["frames_evaluated"] != len(frames):
+        raise AssertionError(f"evaluate_dsec: {len(frames)} depth files, "
+                             f"{report['frames_evaluated']} evaluated, differs on {off}")
+    return report
+
+
+def golden_probe_step(dev, cfg_name="BENCH16", specs=None, needed=KERNELS_A_B) -> list:
+    """scripts/golden_device_probe_torch.py's specs scored on the fixture
+    (reported, not gated: phase 5 gates the literal spec); every spec must
+    run and the kernels of `needed` launch."""
+    mod = script("golden_device_probe_torch")
+    zero_counts()
+    rows = mod.probe(specs or mod.DEFAULT, cfg_name, dev)
+    counts = read_counts()
+    for row in rows:
+        if "error" in row:
+            raise AssertionError(f"golden probe {row['spec']}: {row['error']}")
+        log(f"  (e) golden probe {cfg_name} {row['spec']}: within1 {row['within1']:.4f}, "
+            f"within2 {row['within2']:.4f}, camera mass off by "
+            f"{', '.join(f'{m:.4f}' for m in row['cam_mass_rel'])}, {row['seconds']:.2f} s")
+    _check_launched("golden probe", {n: counts[n] for n in KERNELS_A_B}, needed)
+    return rows
+
+
+def bf_probe_step(dev, cfg_name="FULL", n_events=None) -> dict:
+    """scripts/bf_divergence_probe_torch.py: the butterfly and the flat
+    merge on the card and on the CPU; each spec's card-against-CPU
+    relative L1 below BF_CARD_VS_CPU."""
+    mod = script("bf_divergence_probe_torch")
+    n_events = n_events or mod.N_EV
+    t0 = time.perf_counter()
+    card = mod.run(dev, cfg_name, n_events)
+    t1 = time.perf_counter()
+    cpu = mod.run(torch.device("cpu"), cfg_name, n_events)
+    t2 = time.perf_counter()
+    out = {tag: mod.rel_l1(card[tag], cpu[tag]) for tag in mod.SPECS}
+    out.update({f"bf_vs_flat_{name}": mod.rel_l1(src["bf"], src["flat"])
+                for name, src in (("card", card), ("cpu", cpu))})
+    log(f"  (f) bf probe ({cfg_name}, {n_events} events a camera; card {t1 - t0:.2f} s, "
+        f"cpu {t2 - t1:.2f} s): " + ", ".join(f"{k} {v:.3g}" for k, v in out.items()))
+    bad = [tag for tag in mod.SPECS if not out[tag] < BF_CARD_VS_CPU]
+    if bad:
+        raise AssertionError(f"bf probe: the card disagrees with the CPU under {bad}: {out}")
+    return out
+
+
+def host_api_phase(dev, workload, fused_cpu, cams_cpu, smi="") -> dict:
+    """Phase 11's steps (a)-(f), each logging its seconds."""
+    def evaluate():
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as workdir:
+            return evaluate_dsec_step(dev, workdir)
+
+    steps = {"a": lambda: vote_dsi_step(dev, workload),
+             "b": lambda: demo_step(dev),
+             "c": lambda: grid_extras_step(dev, fused_cpu, cams_cpu),
+             "d": evaluate,
+             "e": lambda: golden_probe_step(dev),
+             "f": lambda: bf_probe_step(dev)}
+    res = {}
+    for key, fn in steps.items():
+        t0 = time.perf_counter()
+        res[key] = fn()
+        log(f"  ({key}) in {time.perf_counter() - t0:.1f} s" + (f"; {smi}" if smi else ""))
+    return res
+
+
 def optional_modules() -> str:
     """Which of the optional host packages import here."""
     import importlib
@@ -2000,7 +2338,7 @@ def main() -> int:
             log(f"  phase {len(marks)} in {marks[-1]:.1f} s")
         if title:
             marks.append(now)
-            log(f"[{len(marks)}/10] {title}")
+            log(f"[{len(marks)}/11] {title}")
 
     dev = require_cuda()
     smi = nvidia_smi_line()
@@ -2050,8 +2388,12 @@ def main() -> int:
 
     phase(f"pipelines: process_2/5 on the headline chunk; {smi}")
     temporal_phase(dev, workload, masses, smi=smi)
-    # Phase 9's focus collapses run on this chunk's fused DSI.
-    fused_cpu = run_chunk(workload, HEADLINE_SPEC)[0].fused_dsi.cpu()
+    # Phase 9's focus collapses run on this chunk's fused DSI, phase 11's grid
+    # extras on it and its two camera DSIs.
+    headline = run_chunk(workload, HEADLINE_SPEC)[0]
+    fused_cpu = headline.fused_dsi.cpu()
+    cams_cpu = [headline.dsis[f"camera{c}"].cpu() for c in (0, 1)]
+    del headline
     log(f"  full_seq: 2 x {FULL_SEQ_EVENTS} events, RAM and the native event store")
     full_seq_phase(dev, smi=smi)
     log("  the multi-frame golden gate (FULL fixture, full_seq chunking)")
@@ -2070,6 +2412,10 @@ def main() -> int:
     phase(f"distributed: one rank over NCCL, two ranks sharing the card, the CLI as two "
           f"processes; {smi}")
     distributed_phase(dev, workload, smi=smi)
+
+    phase("host API and scripts: vote_dsi, the synthetic demo, the grid extras, "
+          "evaluate_dsec, the golden and butterfly probes")
+    host_api_phase(dev, workload, fused_cpu, cams_cpu, smi=smi)
     phase()
 
     binning_src = "dvs_mcemvs_torch/csrc/binning.cu"

@@ -110,6 +110,14 @@ def read_messages(path: str, topic: str = ""
     yield from handle(_records(data))
 
 
+def topics(path: str) -> Dict[str, str]:
+    """{topic: message type} map of the bag."""
+    out = {}
+    for conn, _, _ in read_messages(path):
+        out.setdefault(conn.topic, conn.type)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Message deserializers (ROS1 little-endian wire format)
 # ---------------------------------------------------------------------------
@@ -203,6 +211,23 @@ def parse_event_array(raw: bytes):
             t, rec["p"].astype(np.int8))
 
 
+def parse_camera_info(raw: bytes) -> Dict[str, np.ndarray]:
+    """sensor_msgs/CameraInfo -> dict with K (3,3), D (N,), R (3,3),
+    P (3,4), width, height, distortion_model."""
+    c = _Cursor(raw)
+    c.header()
+    height = c.u32()
+    width = c.u32()
+    model = c.string()
+    nd = c.u32()
+    D = c.f64(nd) if nd else np.zeros(0)
+    K = np.asarray(c.f64(9)).reshape(3, 3)
+    R = np.asarray(c.f64(9)).reshape(3, 3)
+    P = np.asarray(c.f64(12)).reshape(3, 4)
+    return {"K": K, "D": np.atleast_1d(D), "R": R, "P": P,
+            "width": width, "height": height, "distortion_model": model}
+
+
 def read_pose_bag(path: str, topic: str = ""):
     """(ts, q_wxyz (N,4), t_xyz (N,3)) arrays from a pose bag, sorted by
     stamp.  Auto-detects the topic when unique."""
@@ -241,3 +266,12 @@ def read_event_bag(path: str, topic: str):
         raise ValueError(f"{path}: no dvs_msgs/EventArray on {topic!r}")
     return (np.concatenate(xs), np.concatenate(ys),
             np.concatenate(tss), np.concatenate(pss))
+
+
+def read_camera_info_bag(path: str, topic: str) -> Dict[str, np.ndarray]:
+    """First sensor_msgs/CameraInfo on `topic` (the reference reads one and
+    stops, data_loading.cpp:112-208)."""
+    for conn, _, raw in read_messages(path, topic):
+        if conn.type == "sensor_msgs/CameraInfo":
+            return parse_camera_info(raw)
+    raise ValueError(f"{path}: no sensor_msgs/CameraInfo on {topic!r}")

@@ -42,6 +42,13 @@ class PinholeCamera:
     R: Optional[Tuple[float, ...]] = None  # row-major 3x3 rectification rotation
 
     @property
+    def K(self) -> np.ndarray:
+        return np.array(
+            [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
+            dtype=np.float64,
+        )
+
+    @property
     def P(self) -> np.ndarray:
         fx = self.P_fx if self.P_fx is not None else self.fx
         fy = self.P_fy if self.P_fy is not None else self.fy
@@ -202,3 +209,11 @@ def rectify_events_device(x: torch.Tensor, y: torch.Tensor, rect_params: Tuple):
     u = pfx * Xc / Zc + pcx
     v = pfy * Yc / Zc + pcy
     return u, v
+
+
+def project_pixel_to_ray(cam: PinholeCamera, u, v):
+    """Undistorted pixel -> unit-z bearing vector (geometry_utils.hpp:56-66),
+    in numpy on the host."""
+    x = (np.asarray(u) - cam.cx) / cam.fx
+    y = (np.asarray(v) - cam.cy) / cam.fy
+    return np.stack([x, y, np.ones_like(x)], axis=-1)

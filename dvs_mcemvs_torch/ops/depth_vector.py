@@ -47,6 +47,12 @@ class DepthVector:
             return (self.min_depth + i / self._mult).astype(np.float32)
         return (1.0 / (1.0 / self.max_depth + i / self._mult)).astype(np.float32)
 
+    def cell_index_to_depth(self, i) -> torch.Tensor:
+        """Depths of integer cell indices, gathered from the `depths()`
+        table (on the device of `i` when it is a tensor)."""
+        i = torch.as_tensor(i)
+        return torch.as_tensor(self.depths(), device=i.device)[i.long()]
+
     def depth_at_index(self, i: torch.Tensor) -> torch.Tensor:
         """Closed-form depths for an integer index tensor, in float32 (within
         1 ulp of the `depths()` table)."""
@@ -55,3 +61,14 @@ class DepthVector:
         if self.kind == LINEAR:
             return i * step + float(np.float32(self.min_depth))
         return 1.0 / (i * step + float(np.float32(1.0 / self.max_depth)))
+
+    def depth_to_cell(self, depth: torch.Tensor) -> torch.Tensor:
+        """Fractional cell coordinate of `depth`."""
+        if self.kind == LINEAR:
+            return (depth - self.min_depth) * self._mult
+        return (1.0 / depth - 1.0 / self.max_depth) * self._mult
+
+    def depth_to_cell_index(self, depth: torch.Tensor) -> torch.Tensor:
+        """Nearest cell index, int32: floor(cell + 0.5) rounds halves up, as
+        the reference's +0.5 cast (torch.round would round them to even)."""
+        return torch.floor(self.depth_to_cell(depth) + 0.5).to(torch.int32)

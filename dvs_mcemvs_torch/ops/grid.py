@@ -1,10 +1,11 @@
-"""DSI voxel-grid operations: fusion, Z-collapse and 2D filtering.
+"""DSI voxel-grid operations: fusion, Z-collapse, statistics, filtering.
 
-Port of the parts of dvs_mcemvs_tpu/ops/grid.py that process_1, process_2,
-process_5 and the CLI's `--collapse_method` run: the fusions, the argmax
-collapse and the five focus-measure collapses with their 2D filters.  A
-DSI is a (Z, H, W) float32 tensor; the two-grid fusion ops keep the
-reference's epsilon semantics.
+Port of dvs_mcemvs_tpu/ops/grid.py: the two-grid fusions and the
+temporal-fusion accumulators, the argmax / argmin collapses, the five
+focus-measure collapses with their 2D filters, the local-focus harmonic
+mean, the grid statistics and the 3D filters (Laplacian, diffusion,
+separable Gaussian, Moran's I).  A DSI is a (Z, H, W) float32 tensor; the
+two-grid fusion ops keep the reference's epsilon semantics.
 """
 
 from __future__ import annotations
@@ -21,6 +22,18 @@ FUSE_GM = 3
 FUSE_AM = 4
 FUSE_RMS = 5
 FUSE_MAX = 6
+
+
+def fuse_add(g1, g2):
+    return g1 + g2
+
+
+def fuse_subtract(g1, g2):
+    return g1 - g2
+
+
+def fuse_ratio(g1, g2, eps=1e-1):
+    return g1 / (torch.abs(g2) + eps)
 
 
 def fuse_min(g1, g2):
@@ -53,6 +66,18 @@ def fuse_arithmetic_mean(g1, g2):
 
 def fuse_rms(g1, g2):
     return torch.sqrt(0.5 * (g1 * g1 + g2 * g2))
+
+
+def fuse_quadratic_mean(g1, g2):
+    """The root mean square, as `fuse_rms`."""
+    return fuse_rms(g1, g2)
+
+
+def fuse_cubic_mean(g1, g2):
+    """Real cube root of the mean cube; a negative mean keeps its sign, as
+    jnp.cbrt does (a fractional power of it would be NaN)."""
+    m = 0.5 * (g1 ** 3 + g2 ** 3)
+    return torch.sign(m) * torch.abs(m) ** (1.0 / 3.0)
 
 
 _PAIR_FUSIONS = {
@@ -105,6 +130,11 @@ def collapse_max(dsi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.amax(dsi, dim=0), torch.argmax(dsi, dim=0).to(torch.int32)
 
 
+def collapse_min(dsi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(minimum, depth_index int32) per pixel; ties go to the lowest index."""
+    return torch.amin(dsi, dim=0), torch.argmin(dsi, dim=0).to(torch.int32)
+
+
 # Streaming accumulators of temporal fusion (process_2/5): the harmonic mean
 # sums inverses, the arithmetic mean sums values; each is normalised once by
 # the count of sub-intervals that voted.  The sums run in place, with the
@@ -119,6 +149,11 @@ def fuse_add_(acc, g):
 def inverse(g, eps=1e-2):
     """1/(eps + g): one sub-interval's term of the HM accumulator."""
     return 1.0 / (eps + g)
+
+
+def add_inverse(acc, g, eps=1e-2):
+    """acc + 1/(eps + g), out of place."""
+    return acc + inverse(g, eps)
 
 
 def add_inverse_(acc, g, eps=1e-2):
@@ -292,16 +327,39 @@ def collapse_by_dog(dsi: torch.Tensor, sigma: float = 0.5, sigma2_ratio: float =
                                         - gaussian_blur(dsi, sigma * sigma2_ratio)))
 
 
+def _local_mean_square(dsi: torch.Tensor, sigma: float) -> torch.Tensor:
+    return gaussian_blur(dsi * dsi, sigma)
+
+
+def _local_variance(dsi: torch.Tensor, sigma: float) -> torch.Tensor:
+    m = gaussian_blur(dsi, sigma)
+    return torch.clamp(_local_mean_square(dsi, sigma) - m * m, min=0.0)
+
+
 def collapse_by_local_var(dsi: torch.Tensor, sigma: float = 0.5):
     """Gaussian local variance focus (cpp:330-372)."""
-    m = gaussian_blur(dsi, sigma)
-    ms = gaussian_blur(dsi * dsi, sigma)
-    return _collapse_by_focus(torch.clamp(ms - m * m, min=0.0))
+    return _collapse_by_focus(_local_variance(dsi, sigma))
 
 
 def collapse_by_local_mean_square(dsi: torch.Tensor, sigma: float = 0.5):
     """Gaussian local mean-square focus (cpp:375-414)."""
-    return _collapse_by_focus(gaussian_blur(dsi * dsi, sigma))
+    return _collapse_by_focus(_local_mean_square(dsi, sigma))
+
+
+def local_focus_in_place(dsi: torch.Tensor, focus_method: int = 0, sigma: float = 0.5):
+    """computeLocalFocusInPlace (cpp:417-483): the per-plane focus
+    transform, 1 = local mean square, any other value local std-dev."""
+    if focus_method == 1:
+        return _local_mean_square(dsi, sigma)
+    return torch.sqrt(_local_variance(dsi, sigma))
+
+
+def fuse_harmonic_mean_of_local_focus(g1, g2, focus_method: int = 0,
+                                      sigma: float = 0.5, eps: float = 1e-1):
+    """HM of the local focus transforms of two DSIs
+    (fuseDSIs_HarmonicMeanOfLocalFocus, utils.cpp:155-181)."""
+    return fuse_harmonic_mean(local_focus_in_place(g1, focus_method, sigma),
+                              local_focus_in_place(g2, focus_method, sigma), eps)
 
 
 _COLLAPSES = {0: collapse_by_local_var, 1: collapse_by_local_mean_square,
@@ -314,3 +372,82 @@ def collapse(dsi: torch.Tensor, method: int = -1):
     square, 2 gradient magnitude, 3 Laplacian, 4 difference of Gaussians;
     any other value the argmax of votes."""
     return _COLLAPSES.get(method, collapse_max)(dsi)
+
+
+# Statistics (src/cartesian3dgrid.cpp:164-188).
+
+
+def mean_square(dsi: torch.Tensor) -> torch.Tensor:
+    """Mean of the squares, squared in float32."""
+    return torch.mean(dsi.to(torch.float32) ** 2)
+
+
+def min_max(dsi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return torch.amin(dsi), torch.amax(dsi)
+
+
+def mean_std(dsi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Grid mean and population standard deviation (computeMeanStd)."""
+    m = torch.mean(dsi)
+    return m, torch.sqrt(torch.mean((dsi - m) ** 2))
+
+
+# 3D filters: the reference ships them but leaves them out of its build
+# (cartesian3dgrid_filter.cpp, gaussianiir3d.cpp).
+
+
+def laplacian3d(dsi: torch.Tensor) -> torch.Tensor:
+    """6-neighbour 3D Laplacian with homogeneous Neumann boundaries
+    (filter.cpp:72-110): edge-replicate padding on all three axes."""
+    pad = torch.nn.functional.pad(dsi[None, None], (1, 1, 1, 1, 1, 1), mode="replicate")[0, 0]
+    out = -6.0 * dsi
+    out = out + pad[:-2, 1:-1, 1:-1] + pad[2:, 1:-1, 1:-1]
+    out = out + pad[1:-1, :-2, 1:-1] + pad[1:-1, 2:, 1:-1]
+    out = out + pad[1:-1, 1:-1, :-2] + pad[1:-1, 1:-1, 2:]
+    return out
+
+
+def diffuse(dsi: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Heat-equation smoothing to Gaussian scale `sigma` (filter.cpp:19-69):
+    explicit Euler steps g += dt * laplacian3d(g) with the reference's step
+    rule dt = min(1/24, t_final/2), t_final = sigma^2/2; sigma 0 takes no
+    step."""
+    dt_cfl = 1.0 / 12.0
+    t_final = 0.5 * sigma * sigma
+    dt = min(0.5 * dt_cfl, 0.5 * t_final)
+    steps = int(np.ceil(t_final / dt)) if t_final > 0 else 0
+    g = dsi
+    for _ in range(steps):
+        g = g + dt * laplacian3d(g)
+    return g
+
+
+def gaussian_blur_3d(dsi: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Separable 3D Gaussian along (Z, H, W): each axis in turn is moved
+    last and filtered by `conv2d_same` with replicated borders."""
+    k = gaussian_kernel_1d(gaussian_ksize_from_sigma(sigma), sigma)[None, :]
+    out = dsi
+    for axis in range(3):
+        moved = torch.movedim(out, axis, -1)
+        shape = moved.shape
+        conv = conv2d_same(moved.reshape(-1, 1, shape[-1]), k, border="replicate")
+        out = torch.movedim(conv[:, 0, :].reshape(shape), -1, axis)
+    return out
+
+
+def moran_index_gaussian_weights(dsi: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Moran's I of the grid under a Gaussian neighbour-weight kernel
+    (filter.cpp:113-199): I = sum(z (blur(z) - w0 z)) / ((1 - w0)(N - 1))
+    for the standardised grid z, with w0 the 3D kernel's centre tap (the
+    cube of the 1D kernel's).  sigma is clamped at 0.2.  An exact separable
+    FIR Gaussian stands in for the reference's IIR one, as in the JAX
+    package."""
+    sigma = max(float(sigma), 0.2)
+    m, sd = mean_std(dsi)
+    z = (dsi - m) / torch.clamp(sd, min=1e-30)
+    z_smooth = gaussian_blur_3d(z, sigma)
+    k1 = gaussian_kernel_1d(gaussian_ksize_from_sigma(sigma), sigma)
+    w0 = float(k1[len(k1) // 2]) ** 3
+    numer = torch.sum(z * (z_smooth - w0 * z))
+    denom = (1.0 - w0) * (dsi.numel() - 1.0)
+    return numer / (denom + 1e-6)

@@ -11,7 +11,10 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
+
+from ..device import require_cuda
 
 
 class SE3(NamedTuple):
@@ -23,6 +26,17 @@ class SE3(NamedTuple):
     @property
     def batch_shape(self):
         return self.q.shape[:-1]
+
+
+def identity(batch_shape=(), dtype=torch.float32, device=None) -> SE3:
+    """The identity transform with batch shape `batch_shape`, on `device`
+    (by default the CUDA device, raising when there is none)."""
+    if device is None:
+        device = require_cuda()
+    batch_shape = tuple(batch_shape)
+    q = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+    return SE3(q.expand(batch_shape + (4,)),
+               torch.zeros(batch_shape + (3,), dtype=dtype, device=device))
 
 
 def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -45,6 +59,24 @@ def quat_conj(q: torch.Tensor) -> torch.Tensor:
 
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     return q / torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True))
+
+
+def quat_normalize_host(q) -> np.ndarray:
+    """quat_normalize on the host, for poses as they are loaded
+    (trajectory.from_arrays).  It differs from quat_normalize only in
+    rounding: the sum of squares is a chain of fused multiply-adds rounded
+    to float32 at each step, as the JAX package's `jnp.linalg.norm`
+    computes it on the CPU (a float64 sum stands in for each fused step),
+    so the same arrays give the same float32 quaternions in both packages
+    and the pose converter writes the JAX converter's bytes
+    (tests/test_torch_scripts.py::test_convert_poses_writes_the_jax_bytes
+    fails with quat_normalize in its place)."""
+    q = np.asarray(q, np.float32)
+    q64 = q.astype(np.float64)
+    acc = np.zeros(q.shape[:-1], np.float32)
+    for i in range(q.shape[-1]):
+        acc = (q64[..., i] * q64[..., i] + acc).astype(np.float32)
+    return q / np.sqrt(acc)[..., None]
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -101,6 +133,13 @@ def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
     q = torch.take_along_dim(cands, case[..., None, None], dim=-2)[..., 0, :]
     q = torch.where(q[..., :1] < 0, -q, q)
     return quat_normalize(q)
+
+
+def to_matrix(a: SE3) -> torch.Tensor:
+    """(..., 4, 4) homogeneous matrix."""
+    top = torch.cat([quat_to_matrix(a.q), a.t[..., :, None]], dim=-1)
+    bottom = a.q.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(tuple(a.batch_shape) + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
 
 
 def from_matrix(m: torch.Tensor) -> SE3:

@@ -30,6 +30,14 @@ class Trajectory(NamedTuple):
     def device(self) -> torch.device:
         return self.ts.device
 
+    @property
+    def t_start(self) -> torch.Tensor:
+        return self.ts[0]
+
+    @property
+    def t_end(self) -> torch.Tensor:
+        return self.ts[-1]
+
 
 def from_arrays(ts, qs, trans, device=None) -> Trajectory:
     """Build from arrays; ts (N,), qs (N,4) wxyz, trans (N,3); sorted by time.
@@ -41,7 +49,7 @@ def from_arrays(ts, qs, trans, device=None) -> Trajectory:
         device = require_cuda()
     ts = torch.as_tensor(np.asarray(ts, np.float32), device=device)
     order = torch.argsort(ts, stable=True)
-    q = se3.quat_normalize(torch.as_tensor(np.asarray(qs, np.float32), device=device)[order])
+    q = torch.as_tensor(se3.quat_normalize_host(qs), device=device)[order]
     t = torch.as_tensor(np.asarray(trans, np.float32), device=device)[order]
     return Trajectory(ts[order], SE3(q, t))
 
@@ -78,3 +86,19 @@ def apply_right(traj: Trajectory, T: SE3) -> Trajectory:
     q = T.q.expand(traj.poses.q.shape)
     t = T.t.expand(traj.poses.t.shape)
     return Trajectory(traj.ts, se3.compose(traj.poses, SE3(q, t)))
+
+
+def apply_left(traj: Trajectory, T: SE3) -> Trajectory:
+    """Left-compose every pose: T_i <- T * T_i."""
+    q = T.q.expand(traj.poses.q.shape)
+    t = T.t.expand(traj.poses.t.shape)
+    return Trajectory(traj.ts, se3.compose(SE3(q, t), traj.poses))
+
+
+def slice_time(traj: Trajectory, t_start: float, t_stop: float, pad: int = 1) -> Trajectory:
+    """Crop to [t_start, t_stop] with `pad` extra poses on each side; the
+    bounds are searched in a host copy of `ts`."""
+    ts = traj.ts.cpu().numpy()
+    lo = max(0, int(np.searchsorted(ts, t_start, side="left")) - pad)
+    hi = min(len(ts), int(np.searchsorted(ts, t_stop, side="right")) + pad)
+    return Trajectory(traj.ts[lo:hi], SE3(traj.poses.q[lo:hi], traj.poses.t[lo:hi]))

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import se3, trajectory as trajmod
+from .camera import PinholeCamera
 from .se3 import SE3
 
 DEFAULT_PACKET_SIZE = 1024
@@ -317,3 +318,26 @@ def resolve_backend(spec: str):
         else:
             raise ValueError(f"unknown hist option {tok!r} in {spec!r}")
     return voting_hist.make_hist_backend(**kw)
+
+
+def vote_dsi(
+    packets: WarpedPackets,
+    depths,
+    vcam: PinholeCamera,
+    backend: str = "scatter",
+    plane_block: int = 8,
+) -> torch.Tensor:
+    """Step 3: vote all packets into a fresh (Z, H, W) DSI on the packets'
+    device.  `depths` (numpy or tensor) are the plane depths; z0 is read
+    from the first on the host.  `backend` is a `resolve_backend` spec."""
+    z0 = float(depths[0])
+    fn = resolve_backend(backend)
+    return fn(
+        packets,
+        torch.as_tensor(depths, dtype=torch.float32, device=packets.xy_z0.device),
+        z0,
+        (float(vcam.fx), float(vcam.fy), float(vcam.cx), float(vcam.cy)),
+        vcam.width,
+        vcam.height,
+        plane_block=plane_block,
+    )

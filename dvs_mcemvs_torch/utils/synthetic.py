@@ -276,6 +276,21 @@ def event_array_msg(stamp: float, x, y, t, p, width: int, height: int) -> bytes:
             + rec.tobytes())
 
 
+def camera_info_msg(stamp: float, width: int, height: int, K, D=(), R=None, P=None,
+                    distortion_model: str = "plumb_bob") -> bytes:
+    """sensor_msgs/CameraInfo: header, height, width, distortion model, D
+    (f64 a coefficient), K (3x3), R (3x3, identity by default) and P (3x4,
+    [K | 0] by default), row-major f64; binning and ROI are zero."""
+    K = np.asarray(K, np.float64).reshape(3, 3)
+    R = np.eye(3) if R is None else np.asarray(R, np.float64).reshape(3, 3)
+    P = np.hstack([K, np.zeros((3, 1))]) if P is None else np.asarray(P, np.float64)
+    D = np.asarray(D, "<f8").ravel()
+    return (ros_header(stamp) + _u32(height) + _u32(width) + _string(distortion_model)
+            + _u32(D.size) + D.tobytes() + K.astype("<f8").tobytes()
+            + R.astype("<f8").tobytes() + P.reshape(3, 4).astype("<f8").tobytes()
+            + bytes(2 * 4 + 4 * 4 + 1))
+
+
 def write_rosbag(path: str, messages, compression: str = "none") -> None:
     """Write `messages`, (topic, message type, bag time s, payload bytes) in
     time order, as a ROS1 v2.0 bag: the bag header record, chunk records

@@ -158,3 +158,81 @@ def test_warp_events_to_z0(rectify, weighted):
     assert_rel_close(T.xy_z0, J.xy_z0, REL, "xy_z0")
     assert_rel_close(T.centers, J.centers, REL, "centers")
     assert_rel_close(T.event_weights(), J.event_weights(), 0.0, "weights")
+
+
+# The small helpers that only the JAX package's own tests reach.
+# Tolerance: atol 1e-6, indices equal.
+
+
+def test_se3_identity_and_to_matrix(monkeypatch):
+    rng = np.random.default_rng(10)
+    q, t = _poses(rng, 8)
+    want = np.asarray(jse3.to_matrix(jse3.SE3(jnp.asarray(q), jnp.asarray(t))))
+    got = to_np(tse3.to_matrix(tse3.SE3(torch.as_tensor(q), torch.as_tensor(t))))
+    assert got.shape == (8, 4, 4)
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    for shape in [(), (3,), (2, 5)]:
+        ji, ti = jse3.identity(shape), tse3.identity(shape, device="cpu")
+        np.testing.assert_array_equal(to_np(ti.q), np.asarray(ji.q))
+        np.testing.assert_array_equal(to_np(ti.t), np.asarray(ji.t))
+        np.testing.assert_array_equal(to_np(tse3.to_matrix(ti)),
+                                      np.asarray(jse3.to_matrix(ji)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tse3.identity()
+
+
+def test_trajectory_helpers():
+    """t_start / t_end, apply_left and slice_time (bounds searched on the
+    host, with and without padding, inside and past the ends)."""
+    rng = np.random.default_rng(11)
+    n = 30
+    ts = np.sort(rng.uniform(0, 3, n)).astype(np.float32)
+    q, t = _poses(rng, n)
+    jt = jtraj.from_arrays(ts, q, t)
+    tt = ttraj.from_arrays(ts, q, t, device="cpu")
+    assert float(tt.t_start) == float(jt.t_start) and float(tt.t_end) == float(jt.t_end)
+    T = (q[3], t[3])
+    left = ttraj.apply_left(tt, tse3.SE3(torch.as_tensor(T[0]), torch.as_tensor(T[1])))
+    jleft = jtraj.apply_left(jt, jse3.SE3(jnp.asarray(T[0]), jnp.asarray(T[1])))
+    np.testing.assert_allclose(to_np(left.poses.q), np.asarray(jleft.poses.q), atol=1e-6)
+    np.testing.assert_allclose(to_np(left.poses.t), np.asarray(jleft.poses.t), atol=1e-6)
+    for lo, hi, pad in [(0.5, 1.5, 1), (0.5, 1.5, 0), (-1.0, 0.2, 2), (2.9, 9.0, 1),
+                        (float(ts[4]), float(ts[9]), 1)]:
+        js, ts_ = jtraj.slice_time(jt, lo, hi, pad), ttraj.slice_time(tt, lo, hi, pad)
+        np.testing.assert_array_equal(to_np(ts_.ts), np.asarray(js.ts))
+        np.testing.assert_array_equal(to_np(ts_.poses.q), np.asarray(js.poses.q))
+        np.testing.assert_array_equal(to_np(ts_.poses.t), np.asarray(js.poses.t))
+
+
+@pytest.mark.parametrize("cam", CAMERAS, ids=["pinhole", "radtan", "fisheye"])
+def test_project_pixel_to_ray(cam):
+    tc = convert.camera(cam)
+    np.testing.assert_array_equal(tc.K, cam.K)
+    rng = np.random.default_rng(12)
+    u, v = rng.uniform(0, cam.width, 50), rng.uniform(0, cam.height, 50)
+    got = tcam.project_pixel_to_ray(tc, u, v)
+    np.testing.assert_allclose(got, jcam.project_pixel_to_ray(cam, u, v), atol=1e-6)
+    assert got.shape == (50, 3)
+
+
+@pytest.mark.parametrize("kind", [jdv.LINEAR, jdv.INVERSE])
+def test_depth_vector_cell_helpers(kind):
+    """cell_index_to_depth, depth_to_cell and depth_to_cell_index; the
+    linear grid of 2 cells a metre puts depths on exact .5 cells, which
+    both round up (torch.round would round 0.5 and 2.5 down to even)."""
+    j = jdv.DepthVector(kind, 1.0, 5.0, 8)
+    t = tdv.DepthVector(kind, 1.0, 5.0, 8)
+    idx = np.array([0, 3, 7, 5, 1], np.int32)
+    np.testing.assert_array_equal(to_np(t.cell_index_to_depth(torch.as_tensor(idx))),
+                                  np.asarray(j.cell_index_to_depth(jnp.asarray(idx))))
+    depths = np.random.default_rng(13).uniform(1.0, 5.0, 64).astype(np.float32)
+    if kind == jdv.LINEAR:
+        depths[:6] = [1.25, 1.75, 2.25, 3.25, 4.75, 1.0]
+    np.testing.assert_allclose(to_np(t.depth_to_cell(torch.as_tensor(depths))),
+                               np.asarray(j.depth_to_cell(jnp.asarray(depths))), atol=1e-6)
+    got = to_np(t.depth_to_cell_index(torch.as_tensor(depths)))
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, np.asarray(j.depth_to_cell_index(jnp.asarray(depths))))
+    if kind == jdv.LINEAR:
+        np.testing.assert_array_equal(got[:6], [1, 2, 3, 5, 8, 0])

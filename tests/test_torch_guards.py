@@ -2,6 +2,7 @@
 never launch (or count) on CPU tensors, and chip_smoke.py refuses to run
 without a CUDA device instead of falling back to the CPU."""
 
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -44,12 +45,20 @@ def _clean_env():
     return env
 
 
+# The port's scripts: the CUDA probes and the ports of the JAX package's
+# user scripts.
+PORT_SCRIPTS = ["probe_gpu", "synthetic_demo_torch", "evaluate_dsec_torch",
+                "convert_poses_torch", "golden_device_probe_torch",
+                "bf_divergence_probe_torch"]
+
+
 def test_port_never_imports_jax():
     code = ("import importlib, importlib.util, sys\n"
             f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
             "import chip_smoke\n"
-            "spec = importlib.util.spec_from_file_location('probe_gpu', 'scripts/probe_gpu.py')\n"
-            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            f"for name in {PORT_SCRIPTS!r}:\n"
+            "    spec = importlib.util.spec_from_file_location(name, f'scripts/{name}.py')\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'dvs_mcemvs_tpu')))\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_clean_env(),
@@ -80,6 +89,53 @@ def test_cli_needs_the_card(monkeypatch, tmp_path, platform):
         cli.main([f"--platform={platform}", "--calib_type=esim",
                   f"--out_path={tmp_path}/", "--bag_filename_left=e0.npz",
                   "--bag_filename_right=e1.npz", "--bag_filename_pose=p.txt"])
+
+
+def _script(name):
+    spec = importlib.util.spec_from_file_location(
+        f"_guard_{name}", os.path.join(REPO, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("synthetic_demo_torch", []),
+    ("convert_poses_torch", ["{poses}", "{out}"]),
+    ("golden_device_probe_torch", ["hist:g8,seg8,bf,pl", "--cfg", "SMALL"]),
+    ("bf_divergence_probe_torch", ["--cfg", "SMALL"]),
+], ids=["synthetic_demo", "convert_poses", "golden_device_probe", "bf_divergence_probe"])
+def test_scripts_need_the_card(monkeypatch, tmp_path, name, argv):
+    """Each script that runs the port raises without a card unless
+    `--device cpu` asks for the CPU (convert_poses_torch.py, the quick one,
+    then runs)."""
+    poses = str(tmp_path / "poses.txt")
+    np.savetxt(poses, [[0.0, 0, 0, 0, 0, 0, 0, 1], [1.0, 1, 0, 0, 0, 0, 0, 1]])
+    argv = [a.format(poses=poses, out=str(tmp_path / "out.npz")) for a in argv]
+    mod = _script(name)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(argv)
+    if name == "convert_poses_torch":
+        assert mod.main(argv + ["--device", "cpu"]) == 0
+        np.testing.assert_array_equal(np.load(tmp_path / "out.npz")["t"], [0.0, 1.0])
+
+
+def test_evaluate_dsec_needs_no_card(monkeypatch, tmp_path):
+    """evaluate_dsec_torch.py scores depth files with numpy on the host:
+    it runs with no card and has no --device flag."""
+    run, gt = tmp_path / "run", tmp_path / "gt"
+    run.mkdir()
+    gt.mkdir()
+    np.savetxt(run / "000.500000000depth_points_fused.txt", [[1, 2, 3.0], [3, 1, 2.5]])
+    np.save(gt / "000000.npy", np.full((4, 5), 2.8))
+    np.savetxt(tmp_path / "ts.txt", [0.5e6])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = _script("evaluate_dsec_torch")
+    assert mod.main(["--run_dir", str(run), "--gt_timestamps", str(tmp_path / "ts.txt"),
+                     "--gt_depth_npy_dir", str(gt), "--width", "5", "--height", "4"]) == 0
+    with pytest.raises(SystemExit):
+        mod.main(["--run_dir", str(run), "--gt_timestamps", "x", "--device", "cpu"])
 
 
 def test_cpu_calls_launch_no_kernel():
@@ -213,6 +269,70 @@ def test_chip_smoke_presets_rehearse_on_cpu(monkeypatch, tmp_path):
     assert [r["chunks"] for r in runs.values()] == [3, 3]
     with pytest.raises(AssertionError, match="not launched"):
         chip_smoke.bag_phase(cpu, str(tmp_path / "b"), **bag)
+
+
+def test_chip_smoke_host_api_rehearses_on_cpu(tmp_path):
+    """Phase 11's steps at a small size on the CPU (the card's side and the
+    CPU's are the same plain versions, so every comparison is exact):
+    vote_dsi against evaluate_dsi, the demo against itself, the grid
+    extras, evaluate_dsec_torch.py against evaluate_sequence, the golden
+    and butterfly probes; and vote_dsi refuses a run that launched no
+    kernel."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    cpu = torch.device("cpu")
+    workload = chip_smoke.build_workload(cpu, n_events=16384, width=96, height=64,
+                                         dim_z=20, n_pts=2000)
+    spec = "hist:g4,seg4,bf,pl"
+    assert chip_smoke.vote_dsi_step(cpu, workload, spec, needed=()) == {
+        "camera0": 0.0, "camera1": 0.0}
+    with pytest.raises(AssertionError, match="not launched"):
+        chip_smoke.vote_dsi_step(cpu, workload, spec)
+    demo = chip_smoke.demo_step(cpu, specs=("scatter",), needed=())
+    assert demo["scatter"][0] == 0
+    res = chip_smoke.run_chunk(workload, spec)[0]
+    grid = chip_smoke.grid_extras_step(cpu, res.fused_dsi,
+                                       [res.dsis["camera0"], res.dsis["camera1"]])
+    assert len(grid) == 16 and grid["collapse_min"][1] == 1.0
+    report = chip_smoke.evaluate_dsec_step(cpu, str(tmp_path))
+    assert report["frames_evaluated"] > 1
+    rows = chip_smoke.golden_probe_step(cpu, "SMALL", specs=[spec], needed=())
+    assert rows[0]["within1"] > 0.5
+    bf = chip_smoke.bf_probe_step(cpu, "SMALL", n_events=8192)
+    assert bf["bf"] == bf["flat"] == 0.0
+
+
+@pytest.mark.parametrize("field,scale,agrees", [
+    ("semi_dense_pixels", None, False),
+    ("pointcloud_filtered", None, False),
+    ("median_abs_err_m", 1.02, False),
+    ("mean_abs_err_m", 0.98, False),
+    ("median_abs_err_m", 1.005, True),
+], ids=["pixels+1", "points+1", "median+2%", "mean-2%", "median+0.5%"])
+def test_demo_step_holds_the_card_to_the_cpu(monkeypatch, field, scale, agrees):
+    """Phase 11 (b): the card's counts must equal the CPU's and its errors
+    lie within 1 % of the CPU's, relative (the demo's errors are under
+    1 m, so a limit against max(|v|, 1) would pass a fifth of a plane)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    cpu_report = {"backend": "scatter", "semi_dense_pixels": 2548, "median_abs_err_m": 0.0469,
+                  "mean_abs_err_m": 0.1498, "pointcloud_filtered": 2512}
+    card_report = dict(cpu_report)
+    card_report[field] = card_report[field] + 1 if scale is None else card_report[field] * scale
+
+    def run_demo(argv):
+        return 0, card_report if argv[-1] == "cuda" else cpu_report, 0.0
+
+    monkeypatch.setattr(chip_smoke, "_run_demo", run_demo)
+    monkeypatch.setattr(chip_smoke, "read_counts", lambda: dict.fromkeys(chip_smoke.KERNELS_A_B, 1))
+    card = types.SimpleNamespace(type="cuda")
+    if agrees:
+        assert chip_smoke.demo_step(card, specs=("scatter",))["scatter"][1] == card_report
+    else:
+        with pytest.raises(AssertionError, match=field):
+            chip_smoke.demo_step(card, specs=("scatter",))
 
 
 @pytest.mark.parametrize("entry", ["from_arrays", "golden_trajectories",

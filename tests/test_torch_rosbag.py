@@ -125,6 +125,52 @@ def test_unreadable_bags_raise(tmp_path):
                 mod.read_event_bag(path, "/davis/left/events")
 
 
+@pytest.mark.parametrize("model,nd", [("plumb_bob", 5), ("equidistant", 4), ("", 0)],
+                         ids=["plumb_bob", "equidistant", "no-distortion"])
+def test_camera_info_bags_match_jax(tmp_path, model, nd):
+    """CameraInfo from the port's writer (`camera_info_msg`), beside an
+    event topic and a second CameraInfo topic: both packages read equal
+    dicts and the same topic map, and a topic with no CameraInfo raises in
+    both."""
+    rng = np.random.default_rng(31)
+    K = np.array([[200.0, 0.0, 170.5], [0.0, 201.5, 130.25], [0.0, 0.0, 1.0]])
+    R = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    P = np.hstack([K * 0.9, rng.normal(size=(3, 1))])
+    D = rng.normal(size=nd) * 0.1
+    msgs = [
+        ("/davis/left/camera_info", "sensor_msgs/CameraInfo", T0,
+         tsynth.camera_info_msg(T0, 346, 260, K, D, R, P, distortion_model=model)),
+        ("/davis/left/events", "dvs_msgs/EventArray", T0 + 0.1,
+         tsynth.event_array_msg(T0 + 0.1, [1, 2], [3, 4], np.array([T0, T0 + 0.05]),
+                                [1, 0], 346, 260)),
+        ("/davis/right/camera_info", "sensor_msgs/CameraInfo", T0 + 0.2,
+         tsynth.camera_info_msg(T0 + 0.2, 346, 260, K)),
+    ]
+    bag = str(tmp_path / "ci.bag")
+    tsynth.write_rosbag(bag, msgs)
+    assert tbag.topics(bag) == jbag.topics(bag) == {
+        "/davis/left/camera_info": "sensor_msgs/CameraInfo",
+        "/davis/left/events": "dvs_msgs/EventArray",
+        "/davis/right/camera_info": "sensor_msgs/CameraInfo"}
+    for topic in ("/davis/left/camera_info", "/davis/right/camera_info"):
+        got, want = tbag.read_camera_info_bag(bag, topic), jbag.read_camera_info_bag(bag, topic)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+    got = tbag.read_camera_info_bag(bag, "/davis/left/camera_info")
+    assert got["distortion_model"] == model and (got["width"], got["height"]) == (346, 260)
+    np.testing.assert_array_equal(got["K"], K)
+    np.testing.assert_array_equal(got["D"], D)
+    np.testing.assert_array_equal(got["R"], R)
+    np.testing.assert_array_equal(got["P"], P)
+    right = tbag.read_camera_info_bag(bag, "/davis/right/camera_info")
+    np.testing.assert_array_equal(right["R"], np.eye(3))
+    np.testing.assert_array_equal(right["P"], np.hstack([K, np.zeros((3, 1))]))
+    for mod in (jbag, tbag):
+        with pytest.raises(ValueError, match="CameraInfo"):
+            mod.read_camera_info_bag(bag, "/davis/left/events")
+
+
 # ---------------------------------------------------------------------------
 # The CLI on a bag: an MVSEC preset's flags with the fixture's paths
 # ---------------------------------------------------------------------------

@@ -179,3 +179,24 @@ def test_resolve_backend_refuses_unported_specs(rig_packets, spec):
     with pytest.raises(ValueError):
         tvoting.resolve_backend(spec)(convert.packets(packets[0], "cpu"),
                                       torch.as_tensor(depths), float(depths[0]), vp, W, H)
+
+
+@pytest.mark.parametrize("backend", ["scatter", "hist:g4,seg4,bf,pl"])
+def test_vote_dsi_matches_jax(rig_packets, backend):
+    """The one-call voting entry: z0 from the first plane depth, the
+    backend resolved from its spec.  Tolerance: relative L1 < 1e-5 under
+    the exact scatter (float32 scatter-add order), and this file's budget
+    under the histogram spec."""
+    packets, depths, vp, W, H = rig_packets
+    mp = _graft_fixture()[0][0]
+    vcam = convert.camera(mp.vcam)
+    for cam, p in enumerate(packets):
+        want = np.asarray(jvoting.vote_dsi(p, jnp.asarray(depths), mp.vcam, backend=backend),
+                          np.float64)
+        got = to_np(tvoting.vote_dsi(convert.packets(p, "cpu"), depths, vcam,
+                                     backend=backend)).astype(np.float64)
+        assert got.shape == (len(depths), H, W)
+        if backend == "scatter":
+            assert np.abs(got - want).sum() / np.abs(want).sum() < 1e-5, f"camera {cam}"
+        else:
+            _assert_dsi_close(got, want, f"camera {cam}")

@@ -12,9 +12,8 @@ Phases (each raises on failure, so the script exits non-zero):
   1. device  -- require CUDA; print the card's name and power limit;
   2. build   -- nvcc the sources in dvs_mcemvs_torch/csrc/, all at once;
   3. kernels -- kernel vs plain version on the card, error and times (the
-                device alone, by CUDA graph, where a call does not sync
-                with the host; a loop of Python calls between CUDA events
-                beside it), at the headline shapes: binning (f32 taps and int8,
+                device alone, by CUDA graph; a loop of Python calls between
+                CUDA events beside it), at the headline shapes: binning (f32 taps and int8,
                 windowed and dense grids; the ss2 grid, events on every band
                 edge, 64-bit int8 sums, a ragged 552 x 830 grid; its launch
                 plans, cluster occupancy and ptxas report), both resample
@@ -82,6 +81,19 @@ Phases (each raises on failure, so the script exits non-zero):
                 fused depth maps against evaluate_sequence; (e) the
                 golden probe's five specs on BENCH16 (scored, not gated);
                 (f) the butterfly probe, the card against the CPU.
+ 12. programs -- the chunk's programs (`mapper.evaluate_dsi`'s CUDA graphs)
+                against `mapper.eager()` on the headline chunk under the
+                headline spec, every phase-6 spec form and `scatter`: each
+                camera's DSI within phase 3's tolerance (i8 equal, sort
+                within 1e-6 relative L1), vote mass within 1e-3, depth
+                indices equal on >= 99.9 % of the pixels, a replay's launch
+                counts equal to eager's, peak device memory of each; a
+                returned DSI unchanged by the next replay; a chunk of
+                refused int8 weights raises; eager and captured chunks timed
+                in turns, one profiled chunk of each
+                (scripts/profile_torch_chunk.py), capture seconds per
+                program and the output copy's time.
+Phases 4-11 run the chunk on its programs, as a user's call does.
 Each phase logs its seconds; the line before the two result lines gives
 the total and each phase's share.
 Phase 3 also holds kernels A and B against their plain versions past the
@@ -93,6 +105,7 @@ The line before the last is {"kernels": [...]}; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -261,17 +274,15 @@ def cuda_graph_ms(fn) -> float:
     return script("probe_gpu").cuda_graph_ms(fn, GRAPH_SECONDS)
 
 
-def timings(run, plain, library=None, *, iters: int, plain_iters: int = 2,
-            graph: bool = True) -> dict:
-    """A row's times: `ms` of `run` by `cuda_graph_ms` (`graph`=False: by the
-    loop, for a call that syncs with the host), `loop_ms` of `run` and
+def timings(run, plain, library=None, *, iters: int, plain_iters: int = 2) -> dict:
+    """A row's times: `ms` of `run` by `cuda_graph_ms` (`timer` "graph":
+    every kernel's call now runs without a host sync), `loop_ms` of `run` and
     `plain_ms` of `plain` by `cuda_ms`, `library_ms` of `library` (a PyTorch
     call) by `cuda_graph_ms`."""
-    loop_ms = cuda_ms(run, iters)
-    return dict(ms=cuda_graph_ms(run) if graph else loop_ms, loop_ms=loop_ms,
+    return dict(ms=cuda_graph_ms(run), loop_ms=cuda_ms(run, iters),
                 plain_ms=cuda_ms(plain, plain_iters),
                 library_ms=None if library is None else cuda_graph_ms(library),
-                timer="graph" if graph else "loop")
+                timer="graph")
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -719,16 +730,24 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
         w = torch.as_tensor(weights["weighted"], **f32)
         live = int((w != 0).sum())
         out_bytes = G * h * ws * torch.finfo(out_dtype).bits // 8
-        # The int8 mode checks its weights with a host sync: loop-timed.
-        return dict(
+
+        # The int8 mode's weight check sets a device flag, as in a program,
+        # instead of reading the device: the call can be graph-timed.
+        def run():
+            with binning.deferred_weight_checks(flag):
+                return binning.bin_events(hx, hy, w, hs=h, ws=ws, int8=int8,
+                                          out_dtype=out_dtype)
+
+        row = dict(
             max_abs_err=max(errs),
-            **timings(lambda: binning.bin_events(hx, hy, w, hs=h, ws=ws, int8=int8,
-                                                 out_dtype=out_dtype),
-                      lambda: plain_fn(hx, hy, w, h, ws).to(out_dtype), iters=iters,
-                      plain_iters=iters, graph=not int8),
+            **timings(run, lambda: plain_fn(hx, hy, w, h, ws).to(out_dtype), iters=iters,
+                      plain_iters=iters),
             # four tap products and adds for each live event
             **bound(nbytes(hx, hy, w) + out_bytes, 8 * live))
+        binning.raise_weight_faults(flag)
+        return row
 
+    flag = binning.fault_flag(dev)
     results["bin_events"] = binning_row(hs, False, torch.bfloat16, "windowed")
     results["bin_events_int8"] = binning_row(hs, True, torch.bfloat16, "int8 windowed")
     dense = binning_row(hs_dense, False, torch.float32, "dense")
@@ -738,8 +757,16 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
     log(f"  bin_events int8 dense: kernel {dense_i8['ms']:.4f} ms, "
         f"plain {dense_i8['plain_ms']:.4f} ms")
     w_check = torch.as_tensor(weights["weighted"], **f32)
-    log(f"  bin_events int8 weight check alone (inside the int8 rows' times): "
+
+    def deferred_check():
+        with binning.deferred_weight_checks(flag):
+            binning._check_weights(w_check, False, True)
+
+    log(f"  bin_events int8 weight check alone: on the device into the fault flag (inside "
+        f"the int8 rows' times) {cuda_graph_ms(deferred_check):.4f} ms by graph; with its "
+        f"read to the host (calls outside a program) "
         f"{cuda_ms(lambda: binning._check_weights(w_check, False, True), iters):.4f} ms")
+    binning.raise_weight_faults(flag)
     report = _build.BUILD_INFO.get("binning", (0.0, ""))[1]
     for line in report.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
@@ -810,10 +837,10 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
         f"{cuda_ms(sweep_form, 2):.4f} ms")
     err = max(err, err_flat, err_sweep, cap_err_b, resample_edge_cases(dev, hist, rng, iters),
               one_hot.get("banded_resample_sum", 0.0))
-    # Each resample call copies its host index arrays to the card (a host
-    # sync), so kernel B's rows are loop-timed.
+    # Kernel B's index tables are device tables fetched from a cache (no
+    # copy, no sync), so its rows are graph-timed.
     results["banded_resample_sum"] = dict(
-        max_abs_err=err, **timings(merge, merge_plain, iters=iters, graph=False),
+        max_abs_err=err, **timings(merge, merge_plain, iters=iters),
         **bound(nbytes(hist, sy, ty, tx, src_t.int(), out), resample_ops(src.size, hs, ws, ws)))
 
     # Kernel B through banded_resample_fanin: the plane sweep, and K = 32.
@@ -826,9 +853,9 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
 
         # The plain version on the same items (one per plane, its last writer).
         sources, src_idx, maps, items_out = resample.fanin_items(
-            blocks, sy_, ty_, sx_, tx_, out_idx)
-        src_idx_t = torch.as_tensor(src_idx, device=dev)
-        items_t = torch.as_tensor(items_out, dtype=torch.long, device=dev)
+            blocks, sy_, ty_, sx_, tx_, out_idx, n_out=Z_)
+        src_idx_t = src_idx.long()
+        items_t = items_out.long()
 
         def plain():
             return resample.banded_resample_reference(
@@ -839,7 +866,7 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
                        f"{Z_}x{Ho}x{Wo}, duplicates in out_idx)", got, plain())
         moved = nbytes(blocks, sy_, ty_, sx_, tx_, got) + out_idx.size * 4
         return dict(max_abs_err=err_,
-                    **timings(run, plain, iters=iters, plain_iters=n_plain, graph=False),
+                    **timings(run, plain, iters=iters, plain_iters=n_plain),
                     **bound(moved, resample_ops(len(items_out) * K_, Ho, ws, Wo)))
 
     sweep = fanin_case("sweep", S, K_sweep, Z, 2)
@@ -908,8 +935,7 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
             f"ms), plain {r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} "
             f"ms by {r['bound_by']}{ceiling}")
     log(f"  (graph: device alone, calls in one CUDA graph, best of 3 replays; loop: "
-        f"{iters} Python calls between CUDA events, for calls that sync with the host "
-        f"and as the earlier measure; plain: loop)")
+        f"{iters} Python calls between CUDA events, the earlier measure; plain: loop)")
     return results
 
 
@@ -1144,7 +1170,8 @@ def golden_phase(dev, cfg_name="BENCH16", specs=(HEADLINE_SPEC, I8_SPEC, FLAT_SP
                            and out["median_planes"] <= budget["median_err_planes"]
                            and out["gt_median_rel_err"] < budget["gt_median_rel_err"]
                            and max(out["cam_mass_rel"]) < budget["per_camera_mass_rel"])
-        log(f"  golden {cfg_name}{'' if i == 0 else ' (scored, not gated)'}: {json.dumps(out)}")
+        log(f"  golden {cfg_name}{'' if i == 0 else ' (scored, not gated)'}: {json.dumps(out)}; "
+            f"programs {program_summary()['programs']}")
         if i == 0 and not out["pass"]:
             raise AssertionError(f"golden gate failed: {out}")
         scores[spec] = out
@@ -1421,8 +1448,15 @@ def full_seq_phase(dev, n_events=FULL_SEQ_EVENTS, duration=FULL_SEQ_DURATION,
         for path, fn in paths.items():
             what = (f"full_seq from {path} (2 x {n_events} events, chunks of "
                     f"{fopts.duration:.4f} s every {fopts.out_skip:.4f} s, {spec})")
+            held = program_summary()
             idx, launches, median = _timed(dev, what, fn, n_chunk_ev, runs, smi)
-            log(f"  {what}: {len(idx)} chunks {idx}; {len(idx) / median:.3f} chunks/s")
+            now = program_summary()
+            log(f"  {what}: {len(idx)} chunks {idx}; {len(idx) / median:.3f} chunks/s; "
+                f"on programs: {now['captures'] - held['captures']} captured, "
+                f"{now['replays'] - held['replays']} replays in its {runs + 1} runs, "
+                f"{now['programs']} held")
+            if dev.type == "cuda" and now["replays"] == held["replays"]:
+                raise AssertionError(f"{what}: no chunk replayed a program")
             _check_launched(what, launches, needed)
             out[path] = (idx, launches, median)
         for s_ in stores:
@@ -2304,6 +2338,226 @@ def host_api_phase(dev, workload, fused_cpu, cams_cpu, smi="") -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the chunk's programs (CUDA graphs) against mapper.eager()
+# ---------------------------------------------------------------------------
+
+# Every spec the chunk runs under, each captured against eager: the headline
+# spec, phase 6's forms and the exact scatter.  `sort` takes float64 run
+# totals (relative L1 limit); i8 sums integers in kernel A and runs kernel B
+# in a fixed order (equal); the rest are held to phase 3's tolerance (kernel
+# A's f32 shared-memory sums and the scatter's `index_add_` change order
+# from run to run).  Depth indices equal on PROGRAM_EQUAL of the pixels.
+PROGRAM_SPECS = (HEADLINE_SPEC, *SPEC_FORMS, "scatter")
+PROGRAM_SORT_L1, PROGRAM_EQUAL = 1e-6, 0.999
+PROGRAM_RUNS = 10
+
+
+def _gib(n: int) -> float:
+    return n / 2**30
+
+
+def program_summary() -> dict:
+    """The programs held, the process's captures and replays so far, and
+    the capture seconds of each program held."""
+    from dvs_mcemvs_torch import mapper as mappermod
+
+    progs = mappermod.programs()
+    return dict(programs=len(progs), captures=mappermod.Program.captures_total,
+                replays=mappermod.Program.replays_total,
+                capture_s=[round(p.capture_s, 3) for p in progs])
+
+
+def program_vs_eager(dev, workload, spec, needed=KERNELS_A_B) -> dict:
+    """The chunk under `spec` inside `mapper.eager()`, then on its programs
+    (the first run captures them unless they are held, the next replays
+    them): each camera's DSI against eager's, the fused depth indices, the
+    launch counts of a replayed run against the eager run's, and peak device
+    memory of each run.  Raises beyond the limits above."""
+    from dvs_mcemvs_torch import mapper as mappermod
+
+    def counted(fn):
+        _reset_peak(dev)
+        before = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        zero_counts()
+        out = fn()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        return out, {n: counts[n] for n in KERNELS_A_B}, (_gib(before), _gib(peak))
+
+    def eager():
+        with mappermod.eager():
+            return run_chunk(workload, spec)
+
+    (want, dm_want), eager_counts, mem_eager = counted(eager)
+    _, _, mem_capture = counted(lambda: run_chunk(workload, spec))
+    replays = program_summary()["replays"]
+    (got, dm_got), counts, mem_replay = counted(lambda: run_chunk(workload, spec))
+    n_cams = len(workload[1])
+    replayed = program_summary()["replays"] - replays
+    if replayed != n_cams:
+        raise AssertionError(f"{spec}: {replayed} programs replayed, not {n_cams}")
+    if counts != eager_counts:
+        raise AssertionError(f"{spec}: a replay counts {counts}, eager {eager_counts}")
+    _check_launched(f"{spec} on programs", counts, needed)
+    errs = []
+    for c in range(n_cams):
+        g, w = got.dsis[f"camera{c}"], want.dsis[f"camera{c}"]
+        what = f"{spec} camera{c} program vs eager"
+        if spec == I8_SPEC:
+            errs.append(compare_exact(what, g, w))
+        elif spec == "sort":
+            l1 = _rel_l1(g, w)
+            log(f"  {what}: relative L1 {l1:.3g} (limit {PROGRAM_SORT_L1:g})")
+            if not l1 <= PROGRAM_SORT_L1:
+                raise AssertionError(f"{what}: relative L1 {l1}")
+            errs.append(l1)
+        else:
+            errs.append(compare(what, g, w))
+    equal = float((dm_got.depth_indices == dm_want.depth_indices).double().mean())
+    log(f"  {spec}: depth indices equal on {equal:.6f} of the pixels (limit "
+        f"{PROGRAM_EQUAL:g}); launches {counts} (eager {eager_counts}); device memory "
+        f"held before / peak, GiB: eager {mem_eager[0]:.3f} / {mem_eager[1]:.3f}, "
+        f"capturing {mem_capture[0]:.3f} / {mem_capture[1]:.3f}, replayed "
+        f"{mem_replay[0]:.3f} / {mem_replay[1]:.3f}")
+    if equal < PROGRAM_EQUAL:
+        raise AssertionError(f"{spec}: depth indices of the programs differ from eager")
+    return dict(err=max(errs), equal=equal, launches=counts, mem_eager=mem_eager,
+                mem_capture=mem_capture, mem_replay=mem_replay)
+
+
+def fresh_output_step(dev, workload, spec=HEADLINE_SPEC) -> None:
+    """A DSI that a program returned stays as it was after the program's
+    next replay, on other events."""
+    from dvs_mcemvs_torch import mapper as mappermod, pipeline
+
+    mappers, events, trajs, _ = workload
+    T_rv_w = pipeline.place_reference_view(trajs[0], 0.5)
+    kw = dict(packet_size=PACKET, backend=spec, pad="bucket")
+    first = mappermod.evaluate_dsi(mappers[0], events[0], trajs[0], T_rv_w, **kw)
+    kept = first.clone()
+    replays = program_summary()["replays"]
+    second = mappermod.evaluate_dsi(mappers[0], events[1], trajs[0], T_rv_w, **kw)
+    _sync(dev)
+    same, differ = bool(torch.equal(first, kept)), not bool(torch.equal(first, second))
+    replayed = program_summary()["replays"] - replays
+    log(f"  a returned DSI after the next replay of its program (other events): unchanged "
+        f"{same}, the new DSI differs {differ}; replays {replayed}")
+    if not (same and differ and replayed == (dev.type == "cuda")):
+        raise AssertionError("a program's output is not a fresh DSI")
+
+
+def refused_weights_step(dev, workload, spec=I8_SPEC) -> str:
+    """A chunk whose staged weights int8 binning refuses (one weight of 1.5)
+    raises at its extraction, through the device fault flag; the next clean
+    chunk does not.  Returns the message."""
+    from dvs_mcemvs_torch import mapper as mappermod
+
+    real = mappermod._stage_weights
+
+    def refused(w, n):
+        real(w, n)
+        w[n // 2] = 1.5
+
+    mappermod._stage_weights = refused
+    try:
+        run_chunk(workload, spec)
+    except ValueError as e:
+        message = str(e)
+    else:
+        raise AssertionError("a chunk of refused weights gave a depth map")
+    finally:
+        mappermod._stage_weights = real
+    run_chunk(workload, spec)
+    log(f"  refused weights under {spec}: raised {message!r}; the next chunk ran clean")
+    return message
+
+
+def program_timing_step(dev, workload, spec=HEADLINE_SPEC, runs=PROGRAM_RUNS) -> dict:
+    """process_1 + get_depth_map on programs and eagerly, in turns after a
+    warm-up of each; the profile of one chunk of each
+    (scripts/profile_torch_chunk.py); the output copy's time."""
+    from dvs_mcemvs_torch import mapper as mappermod
+
+    def chunk(mode):
+        with mappermod.eager() if mode == "eager" else contextlib.nullcontext():
+            run_chunk(workload, spec)
+
+    samples = {"programs": [], "eager": []}
+    for mode in samples:
+        chunk(mode)
+    for i in range(runs):
+        for mode in (("programs", "eager") if i % 2 == 0 else ("eager", "programs")):
+            t0 = time.perf_counter()
+            chunk(mode)
+            samples[mode].append(time.perf_counter() - t0)
+    out = {}
+    n_ev = sum(e.num for e in workload[1])
+    for mode, secs in samples.items():
+        med = float(np.median(secs))
+        out[mode] = med
+        log(f"  {spec} chunk {mode} (median of {runs}, in turns): {med:.6f} s, "
+            f"{n_ev / med / 1e6:.3f} Mev/s [{', '.join(f'{t:.6f}' for t in secs)}]")
+    if dev.type == "cuda":
+        prof = script("profile_torch_chunk")
+        for mode in samples:
+            res = prof.profile_chunk(workload, spec, mode == "eager")
+            prof.report(res, f"  profiled {mode} chunk", top=8, log=log)
+            out[f"{mode}_idle_share"] = res["idle_share"]
+        prog = [p for p in mappermod.programs() if p.body.backend == spec][-1]
+        dsi = prog.out
+        copy_ms = cuda_graph_ms(lambda: dsi.clone())
+        log(f"  the output copy of one camera's DSI ({_gib(nbytes(dsi)) * 1024:.1f} MiB): "
+            f"{copy_ms:.4f} ms by graph; bound {bound(2 * nbytes(dsi), 0)['bound_ms']:.4f} ms")
+        out["copy_ms"] = copy_ms
+        out.update(program_call_parts(dev, workload, prog))
+    return out
+
+
+def program_call_parts(dev, workload, prog, runs=5) -> dict:
+    """Where one camera's program call spends its time: the host's staging
+    (events into a pinned buffer, copies queued; the card idle), and the
+    replay on the card between CUDA events.  Medians of `runs`."""
+    from dvs_mcemvs_torch import pipeline
+
+    mappers, events, trajs, _ = workload
+    T_rv_w = pipeline.place_reference_view(trajs[0], 0.5)
+    stage_s, replay_ms = [], []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prog._load(events[0], trajs[0], T_rv_w)
+        stage_s.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        start.record()
+        prog.graph.replay()
+        end.record()
+        end.synchronize()
+        replay_ms.append(start.elapsed_time(end))
+    parts = dict(stage_ms=1e3 * float(np.median(stage_s)),
+                 replay_ms=float(np.median(replay_ms)))
+    log(f"  one camera's program call, median of {runs}: host staging {parts['stage_ms']:.3f} ms "
+        f"[{', '.join(f'{1e3 * t:.3f}' for t in stage_s)}], replay on the card "
+        f"{parts['replay_ms']:.3f} ms [{', '.join(f'{t:.3f}' for t in replay_ms)}]")
+    return parts
+
+
+def programs_phase(dev, workload, specs=PROGRAM_SPECS, runs=PROGRAM_RUNS) -> dict:
+    """Phase 12's steps; returns {spec: program_vs_eager's result, ...}."""
+    from dvs_mcemvs_torch import mapper as mappermod
+
+    out = {spec: program_vs_eager(dev, workload, spec, needed=SPEC_FORMS.get(
+        spec, KERNELS_A_B if spec == HEADLINE_SPEC else ())) for spec in specs}
+    fresh_output_step(dev, workload)
+    out["refused"] = refused_weights_step(dev, workload)
+    out["timing"] = program_timing_step(dev, workload, runs=runs)
+    summary = program_summary()
+    log(f"  programs held: {summary['programs']} (cache of {mappermod.PROGRAM_CACHE_SIZE}); "
+        f"capture seconds each (least recently used first): {summary['capture_s']}")
+    return out
+
+
 def optional_modules() -> str:
     """Which of the optional host packages import here."""
     import importlib
@@ -2338,7 +2592,7 @@ def main() -> int:
             log(f"  phase {len(marks)} in {marks[-1]:.1f} s")
         if title:
             marks.append(now)
-            log(f"[{len(marks)}/11] {title}")
+            log(f"[{len(marks)}/12] {title}")
 
     dev = require_cuda()
     smi = nvidia_smi_line()
@@ -2416,6 +2670,10 @@ def main() -> int:
     phase("host API and scripts: vote_dsi, the synthetic demo, the grid extras, "
           "evaluate_dsec, the golden and butterfly probes")
     host_api_phase(dev, workload, fused_cpu, cams_cpu, smi=smi)
+
+    phase(f"programs: the chunk's CUDA graphs against mapper.eager() under every spec; "
+          f"{smi}")
+    programs_phase(dev, workload)
     phase()
 
     binning_src = "dvs_mcemvs_torch/csrc/binning.cu"

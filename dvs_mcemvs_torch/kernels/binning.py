@@ -19,10 +19,12 @@ the kernel writes every bin once.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, List, Optional, Tuple
+import threading
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -243,8 +245,9 @@ def bin_events(hx: torch.Tensor, hy: torch.Tensor, w: torch.Tensor, *,
     (hs % 64 == 0).  Zero-weight events contribute nothing.
     `binary_w=True` asserts the weights are 0/1 and raises otherwise; `int8`
     raises on weights outside [0, 1], where the TPU kernels' int8 taps would
-    wrap.  A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel once, under `plan`, and checks the weights while it runs.
+    wrap (inside `deferred_weight_checks`, both checks set a device flag
+    instead).  A CPU tensor runs the plain version; a CUDA tensor launches
+    the kernel once, under `plan`, and checks the weights while it runs.
     """
     if hx.ndim != 2 or hx.shape != hy.shape or hx.shape != w.shape:
         raise ValueError(f"hx, hy, w must share one (G, E) shape, got "
@@ -278,15 +281,60 @@ def bin_events(hx: torch.Tensor, hy: torch.Tensor, w: torch.Tensor, *,
     return hist
 
 
+# The weight checks' messages, in the order of a fault flag's entries.
+WEIGHT_FAULTS = ("binary_w=True but the weights are not all 0 or 1",
+                 "int8=True needs weights in [0, 1]")
+_deferred = threading.local()
+
+
+def fault_flag(device) -> torch.Tensor:
+    """A fresh fault flag for `deferred_weight_checks`: one int32 per entry
+    of WEIGHT_FAULTS, zero."""
+    return torch.zeros(len(WEIGHT_FAULTS), dtype=torch.int32, device=device)
+
+
+@contextlib.contextmanager
+def deferred_weight_checks(flag: torch.Tensor) -> Iterator[None]:
+    """Inside (on this thread), `bin_events` does not read the device to
+    check its weights: each check sets its entry of `flag` on the device
+    instead, queued after the launch, so the calls can be captured in a CUDA
+    graph.  `raise_weight_faults(flag)` raises what the checks found."""
+    prev = getattr(_deferred, "flag", None)
+    _deferred.flag = flag
+    try:
+        yield
+    finally:
+        _deferred.flag = prev
+
+
+def raise_weight_faults(flag: torch.Tensor) -> None:
+    """Read `flag` (one copy to the host) and raise the ValueError of its
+    first set entry, clearing the flag; return when none is set."""
+    found = flag.tolist()
+    for message, bad in zip(WEIGHT_FAULTS, found):
+        if bad:
+            flag.zero_()
+            raise ValueError(message)
+
+
 def _check_weights(w: torch.Tensor, binary_w: bool, int8: bool) -> None:
-    """Raise on weights the mode does not take (see bin_events)."""
+    """Raise on weights the mode does not take (see bin_events), or, inside
+    `deferred_weight_checks`, set the flag's entries on the device."""
+    flag = getattr(_deferred, "flag", None)
+    if flag is not None:
+        if binary_w:
+            flag[0] |= (~((w == 0) | (w == 1))).any()
+        if int8:
+            # (a NaN fails both comparisons)
+            flag[1] |= (~((w >= 0) & (w <= 1))).any()
+        return
     if binary_w and not bool(((w == 0) | (w == 1)).all()):
-        raise ValueError("binary_w=True but the weights are not all 0 or 1")
+        raise ValueError(WEIGHT_FAULTS[0])
     if int8 and w.numel():
         # One reduction and one copy to the host (a NaN fails both tests).
         lo, hi = torch.stack(torch.aminmax(w)).tolist()
         if not (lo >= 0 and hi <= 1):
-            raise ValueError("int8=True needs weights in [0, 1]")
+            raise ValueError(WEIGHT_FAULTS[1])
 
 
 bin_events.launches = 0

@@ -4,20 +4,45 @@ Port of dvs_mcemvs_tpu/mapper.py: an immutable per-camera setup (virtual
 camera, rectification LUT, depth planes) whose `evaluate_dsi` turns a chunk
 of events into a fresh (Z, H, W) DSI on the device of the trajectory, and
 `get_pointcloud`, which turns a depth map into a filtered point cloud.
+
+On a CUDA device `evaluate_dsi` runs a *program*, the counterpart of the
+JAX package's `_evaluate_dsi_jit`: the chunk's body (warp and vote) captured
+once in a CUDA graph per `program_key` (the jit's static arguments and the
+input shapes, which `bucket_capacity` keeps few) and replayed for every
+later chunk of that key, one launch from the host.  Inside `eager()` (the
+counterpart of `jax.disable_jit()`), and on the CPU, the same body runs
+eagerly.  The body reads nothing back from the device: the binning's weight
+checks set a per-device fault flag, which `check_faults` reads once a chunk
+(`get_depth_map`, `pipeline._synchronize`).
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+import threading
+import time
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .kernels import binning, resample
 from .ops import camera as camops, extract, pointcloud as pcops, trajectory as trajmod, voting
 from .ops.camera import PinholeCamera, rectify_lut, virtual_camera
 from .ops.depth_vector import DepthVector, LINEAR
 from .ops.se3 import SE3
+
+# Programs kept (all devices): two cameras times the bucket shapes of a run
+# (process_1's chunk, process_2/5's sub-intervals, full_seq windows on both
+# sides of a bucket edge: 3-4), with room for a second trajectory set, as
+# the golden gates' runs beside the headline chunk.  Each holds its DSI (123
+# MB at 640x480x100) and its input buffers; the least recently used program
+# beyond this is dropped with its graph.
+PROGRAM_CACHE_SIZE = 16
+# The kernel wrappers a body reaches, whose launch counts a replay adds.
+_COUNTED = (binning.bin_events, resample.banded_resample_sum, resample.banded_resample_fanin)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,9 +113,115 @@ def make_mapper(cam: PinholeCamera, shape: DsiShape,
 
 
 def bucket_capacity(n: int, packet_size: int) -> int:
-    """Smallest power-of-two packet count covering n events, in events."""
+    """Smallest power-of-two packet count covering n events, in events: the
+    programs' event shapes under pad="bucket" (O(log E) programs a run)."""
     k = -(-n // packet_size)
     return packet_size * (1 << max(k - 1, 0).bit_length())
+
+
+def _n_static(n: int, packet_size: int, pad: str) -> int:
+    """Events the body takes: the bucket capacity, or the chunk's own count."""
+    if pad == "bucket":
+        return bucket_capacity(n, packet_size)
+    if pad != "none":
+        raise ValueError(f"pad must be 'none' or 'bucket', got {pad!r}")
+    return n
+
+
+def _stage_weights(w: np.ndarray, n: int) -> None:
+    """The bucket pad's per-event weights: 1 for the chunk's n events, 0 for
+    the padding."""
+    w[:n] = 1.0
+    w[n:] = 0.0
+
+
+def _stage(events: Events, x: np.ndarray, y: np.ndarray, t: np.ndarray,
+           w: Optional[np.ndarray]) -> None:
+    """Write the chunk into the host buffers x, y (int32), t (float32) and,
+    under pad="bucket", w (float32): the tail past the chunk's events holds
+    zero-weight events at pixel (0, 0) and the last event's time."""
+    n = events.num
+    x[:n] = events.x
+    x[n:] = 0
+    y[:n] = events.y
+    y[n:] = 0
+    t[:n] = events.t
+    t[n:] = t[n - 1]
+    if w is not None:
+        _stage_weights(w, n)
+
+
+class _Body(NamedTuple):
+    """The body's static arguments (the JAX jit's static_argnames)."""
+
+    z0: float
+    width: int
+    height: int
+    vcam_params: Tuple[float, float, float, float]
+    packet_size: int
+    backend: str
+    plane_block: int
+    rect_params: Optional[tuple]
+
+
+class _Constants(NamedTuple):
+    """The mapper's constants on a device: plane depths, the camera's and the
+    virtual camera's intrinsics, and the LUT under rectify="lut"."""
+
+    depths: torch.Tensor
+    K_cam: torch.Tensor
+    Kv_inv: torch.Tensor
+    lut: Optional[torch.Tensor]
+
+
+def _setup(mapper: Mapper, packet_size: int, backend: str, plane_block: int,
+           rectify: str) -> _Body:
+    if rectify not in ("device", "lut"):
+        raise ValueError(f"rectify must be 'device' or 'lut', got {rectify!r}")
+    vc = mapper.vcam
+    return _Body(z0=float(mapper.depth_vec.depths()[0]), width=mapper.width,
+                 height=mapper.height,
+                 vcam_params=(float(vc.fx), float(vc.fy), float(vc.cx), float(vc.cy)),
+                 packet_size=packet_size, backend=backend, plane_block=plane_block,
+                 rect_params=camops.rect_static(mapper.cam) if rectify == "device" else None)
+
+
+def _constants(mapper: Mapper, body: _Body, device) -> _Constants:
+    return _Constants(
+        depths=torch.as_tensor(mapper.depth_vec.depths(), device=device),
+        K_cam=torch.as_tensor(mapper.cam.P.astype(np.float32), device=device),
+        Kv_inv=torch.as_tensor(np.linalg.inv(mapper.vcam.P).astype(np.float32),
+                               device=device),
+        lut=None if body.rect_params is not None else torch.as_tensor(mapper.lut,
+                                                                      device=device))
+
+
+def _warp(body: _Body, c: _Constants, x, y, t, w, traj: trajmod.Trajectory,
+          T_rv_w: SE3) -> voting.WarpedPackets:
+    return voting.warp_events_to_z0(
+        x, y, t, traj, T_rv_w, c.lut, c.K_cam, c.Kv_inv, z0=body.z0, width=body.width,
+        packet_size=body.packet_size, rect_params=body.rect_params, ev_weight=w,
+        full=w is not None)
+
+
+def _vote(body: _Body, c: _Constants, x, y, t, w, traj: trajmod.Trajectory,
+          T_rv_w: SE3) -> torch.Tensor:
+    """The chunk's body: device tensors in, a (Z, H, W) DSI out; it touches
+    no host array and reads nothing from the device."""
+    packets = _warp(body, c, x, y, t, w, traj, T_rv_w)
+    fn = voting.resolve_backend(body.backend)
+    return fn(packets, c.depths, body.z0, body.vcam_params, body.width, body.height,
+              plane_block=body.plane_block)
+
+
+def _host_events(events: Events, packet_size: int, pad: str, device):
+    """The chunk as device tensors (x, y, t, w or None), from pageable host
+    buffers: the eager path's staging."""
+    n = _n_static(events.num, packet_size, pad)
+    bufs = (np.empty(n, np.int32), np.empty(n, np.int32), np.empty(n, np.float32),
+            np.empty(n, np.float32) if pad == "bucket" else None)
+    _stage(events, *bufs)
+    return tuple(None if b is None else torch.as_tensor(b, device=device) for b in bufs)
 
 
 def warp_chunk(
@@ -103,40 +234,232 @@ def warp_chunk(
     pad: str = "none",
 ) -> Tuple[voting.WarpedPackets, torch.Tensor, float]:
     """The chunk's events as packets on the z0 plane of the reference view,
-    on the trajectory's device: (packets, plane depths, z0).  `rectify` and
-    `pad` as in `evaluate_dsi`."""
-    dev = traj.device
-    ev_weight = None
-    x_arr, y_arr, t_arr = events.x, events.y, events.t
-    if pad == "bucket":
-        cap = bucket_capacity(events.num, packet_size)
-        extra = cap - events.num
-        x_arr = np.pad(np.asarray(x_arr), (0, extra))
-        y_arr = np.pad(np.asarray(y_arr), (0, extra))
-        t_arr = np.pad(np.asarray(t_arr), (0, extra), mode="edge")
-        w = np.zeros(cap, np.float32)
-        w[:events.num] = 1.0
-        ev_weight = torch.as_tensor(w, device=dev)
-    elif pad != "none":
-        raise ValueError(f"pad must be 'none' or 'bucket', got {pad!r}")
-    if rectify not in ("device", "lut"):
-        raise ValueError(f"rectify must be 'device' or 'lut', got {rectify!r}")
-    depths_np = mapper.depth_vec.depths()
-    depths = torch.as_tensor(depths_np, device=dev)
-    z0 = float(depths_np[0])
-    K_cam = torch.as_tensor(mapper.cam.P.astype(np.float32), device=dev)
-    Kv_inv = torch.as_tensor(np.linalg.inv(mapper.vcam.P).astype(np.float32), device=dev)
-    rect_params = camops.rect_static(mapper.cam) if rectify == "device" else None
-    lut = None if rect_params is not None else torch.as_tensor(mapper.lut, device=dev)
-    packets = voting.warp_events_to_z0(
-        torch.as_tensor(np.asarray(x_arr, np.int32), device=dev),
-        torch.as_tensor(np.asarray(y_arr, np.int32), device=dev),
-        torch.as_tensor(np.asarray(t_arr, np.float32), device=dev),
-        traj, T_rv_w, lut, K_cam, Kv_inv, z0=z0, width=mapper.width,
-        packet_size=packet_size, rect_params=rect_params,
-        ev_weight=ev_weight, full=ev_weight is not None,
-    )
-    return packets, depths, z0
+    on the trajectory's device, eagerly: (packets, plane depths, z0).
+    `rectify` and `pad` as in `evaluate_dsi`."""
+    body = _setup(mapper, packet_size, "", 0, rectify)
+    c = _constants(mapper, body, traj.device)
+    x, y, t, w = _host_events(events, packet_size, pad, traj.device)
+    return _warp(body, c, x, y, t, w, traj, T_rv_w), c.depths, body.z0
+
+
+# ---------------------------------------------------------------------------
+# Programs: the body captured in a CUDA graph per key
+# ---------------------------------------------------------------------------
+
+
+_eager = threading.local()
+
+
+@contextlib.contextmanager
+def eager() -> Iterator[None]:
+    """Inside (on this thread), `evaluate_dsi` runs the body eagerly on the
+    card instead of a program: the counterpart of `jax.disable_jit()`."""
+    prev = getattr(_eager, "on", False)
+    _eager.on = True
+    try:
+        yield
+    finally:
+        _eager.on = prev
+
+
+_FAULTS: Dict[torch.device, torch.Tensor] = {}
+_PENDING: set = set()
+_FAULTS_LOCK = threading.Lock()
+
+
+def _fault_flag(device: torch.device) -> torch.Tensor:
+    """The device's fault flag, which every body there sets (made once,
+    outside any capture)."""
+    with _FAULTS_LOCK:
+        if device not in _FAULTS:
+            _FAULTS[device] = binning.fault_flag(device)
+        return _FAULTS[device]
+
+
+def check_faults() -> None:
+    """Raise the binning's ValueError if a chunk voted since the last check
+    had weights its mode refuses (`binning.WEIGHT_FAULTS`): one read of each
+    device's fault flag where a chunk ran since.  `get_depth_map` and
+    `pipeline._synchronize` call it, so no depth map or saved file comes
+    from such a chunk."""
+    with _FAULTS_LOCK:
+        pending = [_FAULTS[d] for d in _PENDING]
+        _PENDING.clear()
+    for flag in pending:
+        binning.raise_weight_faults(flag)
+
+
+def program_key(mapper: Mapper, n_events: int, traj: trajmod.Trajectory,
+                packet_size: int = voting.DEFAULT_PACKET_SIZE, backend: str = "scatter",
+                plane_block: int = 8, rectify: str = "device", pad: str = "none") -> tuple:
+    """The key of the program that votes a chunk of `n_events`: the JAX
+    jit's static arguments (the body's `_Body`: z0, size, vcam and rect
+    params, packet size, backend, plane block) and what fixes the
+    constants (the camera's intrinsics and distortion, the virtual camera,
+    the depth planes, the LUT under rectify="lut"), the input shapes (events
+    under `pad`, poses), the device, and the camera: the trajectory's pose
+    buffer, so each camera of a rig has programs of its own."""
+    body = _setup(mapper, packet_size, backend, plane_block, rectify)
+    lut = id(mapper.lut) if rectify == "lut" else None
+    return (traj.device, body, camops.rect_static(mapper.cam), mapper.vcam.P.tobytes(),
+            mapper.depth_vec, lut, pad, _n_static(n_events, packet_size, pad), traj.n,
+            id(traj.poses.t))
+
+
+class ProgramCache:
+    """A least-recently-used map of programs, closing each it drops."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self._items: "collections.OrderedDict[tuple, object]" = collections.OrderedDict()
+
+    def __len__(self) -> int:
+        return len(self._items)
+
+    def keys(self) -> list:
+        return list(self._items)
+
+    def values(self) -> list:
+        return list(self._items.values())
+
+    def get(self, key):
+        prog = self._items.get(key)
+        if prog is not None:
+            self._items.move_to_end(key)
+        return prog
+
+    def put(self, key, prog) -> None:
+        self._items[key] = prog
+        self._items.move_to_end(key)
+        while len(self._items) > self.size:
+            _, old = self._items.popitem(last=False)
+            old.close()
+
+    def clear(self) -> None:
+        while self._items:
+            self._items.popitem(last=False)[1].close()
+
+
+_PROGRAMS = ProgramCache(PROGRAM_CACHE_SIZE)
+_POOLS: Dict[torch.device, tuple] = {}
+_SIDE: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+def programs() -> list:
+    """The programs held, least recently used first."""
+    return _PROGRAMS.values()
+
+
+class Program:
+    """The body for one key, captured in a CUDA graph.
+
+    It owns the body's static inputs on the card (events, weights, poses,
+    T_rv_w), the mapper's constants, two pinned host buffers the events
+    are staged in by turns, and the graph's output.  Every program of a
+    device captures into one memory pool: replays are serialised on the
+    caller's stream and each output is copied out right after its replay,
+    so one graph's temporaries may reuse another's memory.  The class keeps
+    the process's counts of captures and replays."""
+
+    captures_total = 0
+    replays_total = 0
+
+    def __init__(self, key: tuple, mapper: Mapper, body: _Body, n_static: int,
+                 weighted: bool, traj: trajmod.Trajectory):
+        dev = traj.device
+        self.key, self.body, self.device = key, body, dev
+        self.constants = _constants(mapper, body, dev)
+        # The key holds the ids of the pose buffer (and the LUT): keep them
+        # alive, so that no other object takes those ids while this lives.
+        self._pinned_ids = (traj.poses.t, mapper.lut)
+        i32, f32 = dict(dtype=torch.int32), dict(dtype=torch.float32)
+        self.events = [torch.zeros(n_static, **i32, device=dev),
+                       torch.zeros(n_static, **i32, device=dev),
+                       torch.zeros(n_static, **f32, device=dev)]
+        if weighted:
+            self.events.append(torch.zeros(n_static, **f32, device=dev))
+        self.staging = [[torch.empty(e.shape, dtype=e.dtype, pin_memory=True)
+                         for e in self.events] for _ in range(2)]
+        self.staged = [None, None]  # the event after each staging buffer's copy
+        self.poses = [torch.zeros_like(traj.ts), torch.zeros_like(traj.poses.q),
+                      torch.zeros_like(traj.poses.t)]
+        self.T_rv_w = [torch.zeros(4, **f32, device=dev), torch.zeros(3, **f32, device=dev)]
+        self.calls = 0
+        self.graph = self.out = self.tables = None
+        self.launches: Dict[object, int] = {}
+        self.capture_s = 0.0
+
+    def _load(self, events: Events, traj: trajmod.Trajectory, T_rv_w: SE3) -> None:
+        """Stage the call's inputs into the static buffers on the current
+        stream: events through the pinned buffer not in flight."""
+        slot = self.calls % 2
+        self.calls += 1
+        if self.staged[slot] is not None:
+            self.staged[slot].synchronize()
+        host = self.staging[slot]
+        _stage(events, *(h.numpy() for h in host), *([None] * (4 - len(host))))
+        for dst, src in zip(self.events, host):
+            dst.copy_(src, non_blocking=True)
+        self.staged[slot] = torch.cuda.Event()
+        self.staged[slot].record()
+        for dst, src in zip(self.poses, (traj.ts, traj.poses.q, traj.poses.t)):
+            dst.copy_(src)
+        self.T_rv_w[0].copy_(T_rv_w.q.reshape(4))
+        self.T_rv_w[1].copy_(T_rv_w.t.reshape(3))
+
+    def _run(self) -> torch.Tensor:
+        x, y, t = self.events[:3]
+        w = self.events[3] if len(self.events) > 3 else None
+        traj = trajmod.Trajectory(self.poses[0], SE3(self.poses[1], self.poses[2]))
+        return _vote(self.body, self.constants, x, y, t, w, traj, SE3(*self.T_rv_w))
+
+    def capture(self, events: Events, traj: trajmod.Trajectory, T_rv_w: SE3,
+                flag: torch.Tensor) -> torch.Tensor:
+        """First use: stage the inputs, run the body eagerly on a side stream
+        (building the kernels and filling the plan and table caches), then
+        capture it.  Returns the eager run's DSI; the counts of its launches
+        stand, the capture's are taken back and added at every replay."""
+        t0 = time.perf_counter()
+        dev = self.device
+        self._load(events, traj, T_rv_w)
+        cur = torch.cuda.current_stream(dev)
+        if dev not in _SIDE:
+            _SIDE[dev] = torch.cuda.Stream(dev)
+        side = _SIDE[dev]
+        side.wait_stream(cur)
+        with torch.cuda.stream(side), binning.deferred_weight_checks(flag):
+            dsi = self._run()
+        cur.wait_stream(side)
+        dsi.record_stream(cur)
+        before = {fn: fn.launches for fn in _COUNTED}
+        pool = _POOLS.setdefault(dev, torch.cuda.graph_pool_handle())
+        self.graph = torch.cuda.CUDAGraph()
+        with resample.tables_in_use() as self.tables, \
+                binning.deferred_weight_checks(flag), \
+                torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
+            self.out = self._run()
+        for fn, n in before.items():
+            self.launches[fn] = fn.launches - n
+            fn.launches = n
+        self.capture_s = time.perf_counter() - t0
+        Program.captures_total += 1
+        return dsi
+
+    def __call__(self, events: Events, traj: trajmod.Trajectory, T_rv_w: SE3) -> torch.Tensor:
+        """Stage, replay on the current stream, and copy the output into a
+        fresh DSI."""
+        self._load(events, traj, T_rv_w)
+        self.graph.replay()
+        Program.replays_total += 1
+        for fn, n in self.launches.items():
+            fn.launches += n
+        return self.out.clone()
+
+    def close(self) -> None:
+        """Drop the graph and its buffers once the card is done with them."""
+        if self.graph is not None:
+            torch.cuda.synchronize(self.device)
+        self.graph = self.out = self.tables = None
 
 
 def evaluate_dsi(
@@ -157,22 +480,44 @@ def evaluate_dsi(
     the host LUT.  `pad` = "bucket" pads the events with zero-weight events
     to a power-of-two packet capacity, so the trailing partial packet votes;
     "none" drops the events past the last full packet, as the reference.
+
+    On a CUDA device outside `eager()` this replays the program of
+    `program_key`, capturing it on first use; a failed capture or replay
+    raises.  Refused binning weights raise at the next `check_faults`.
     """
     if events.num <= packet_size:
         return None
-    packets, depths, z0 = warp_chunk(mapper, events, traj, T_rv_w, packet_size,
-                                     rectify, pad)
-    vp = (float(mapper.vcam.fx), float(mapper.vcam.fy),
-          float(mapper.vcam.cx), float(mapper.vcam.cy))
-    fn = voting.resolve_backend(backend)
-    return fn(packets, depths, z0, vp, mapper.width, mapper.height,
-              plane_block=plane_block)
+    n_static = _n_static(events.num, packet_size, pad)
+    body = _setup(mapper, packet_size, backend, plane_block, rectify)
+    dev = traj.device
+    flag = _fault_flag(dev)
+    if dev.type == "cuda" and not getattr(_eager, "on", False):
+        key = program_key(mapper, events.num, traj, packet_size, backend, plane_block,
+                          rectify, pad)
+        prog = _PROGRAMS.get(key)
+        if prog is None:
+            prog = Program(key, mapper, body, n_static, pad == "bucket", traj)
+            dsi = prog.capture(events, traj, T_rv_w, flag)
+            _PROGRAMS.put(key, prog)
+        else:
+            dsi = prog(events, traj, T_rv_w)
+    else:
+        x, y, t, w = _host_events(events, packet_size, pad, dev)
+        with binning.deferred_weight_checks(flag):
+            dsi = _vote(body, _constants(mapper, body, dev), x, y, t, w, traj, T_rv_w)
+    with _FAULTS_LOCK:
+        _PENDING.add(dev)
+    return dsi
 
 
 def get_depth_map(mapper: Mapper, dsi: torch.Tensor,
                   options: extract.DepthMapOptions) -> extract.DepthMapResult:
-    """getDepthMapFromDSI on this mapper's depth planes."""
-    return extract.get_depth_map_from_dsi(dsi, mapper.depth_vec, options)
+    """getDepthMapFromDSI on this mapper's depth planes.  Raises, once the
+    extraction is queued, if a chunk voted since the last check had refused
+    weights (`check_faults`)."""
+    res = extract.get_depth_map_from_dsi(dsi, mapper.depth_vec, options)
+    check_faults()
+    return res
 
 
 @dataclasses.dataclass(frozen=True)

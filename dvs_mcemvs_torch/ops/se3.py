@@ -54,7 +54,9 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    """(w, -x, -y, -z), with no constant copied from the host (a CUDA graph
+    cannot hold such a copy)."""
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:

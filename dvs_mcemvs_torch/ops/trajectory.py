@@ -6,7 +6,7 @@ batched `searchsorted` + batched SE(3) lerp.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -17,10 +17,16 @@ from .se3 import SE3
 
 
 class Trajectory(NamedTuple):
-    """Sorted pose buffer: ts (N,) float32 seconds, poses: SE3 with batch (N,)."""
+    """Sorted pose buffer: ts (N,) float32 seconds, poses: SE3 with batch (N,).
+
+    `span` holds ts[0] and ts[-1] as host floats of ts's dtype when they
+    were known on the host (`from_arrays` and the functions that derive a
+    trajectory from one), so that `valid_at` needs no device read.
+    """
 
     ts: torch.Tensor
     poses: SE3
+    span: Optional[Tuple[float, float]] = None
 
     @property
     def n(self) -> int:
@@ -47,11 +53,13 @@ def from_arrays(ts, qs, trans, device=None) -> Trajectory:
     """
     if device is None:
         device = require_cuda()
-    ts = torch.as_tensor(np.asarray(ts, np.float32), device=device)
+    ts_host = np.asarray(ts, np.float32)
+    ts = torch.as_tensor(ts_host, device=device)
     order = torch.argsort(ts, stable=True)
     q = torch.as_tensor(se3.quat_normalize_host(qs), device=device)[order]
     t = torch.as_tensor(np.asarray(trans, np.float32), device=device)[order]
-    return Trajectory(ts[order], SE3(q, t))
+    span = (float(ts_host.min()), float(ts_host.max())) if ts_host.size else None
+    return Trajectory(ts[order], SE3(q, t), span)
 
 
 def from_matrices(ts, mats, device=None) -> Trajectory:
@@ -81,18 +89,27 @@ def pose_at(traj: Trajectory, t) -> Tuple[SE3, torch.Tensor]:
     return se3.interpolate(T0, T1, alpha), valid
 
 
+def valid_at(traj: Trajectory, t: float) -> bool:
+    """Whether `pose_at(traj, t)` calls time `t` valid, decided on the host
+    as it decides it: t rounded to ts's dtype lies in [ts[0], ts[-1]).  Reads
+    ts[0] and ts[-1] from the device only for a trajectory without `span`."""
+    lo, hi = traj.span if traj.span is not None else traj.ts[[0, -1]].tolist()
+    t32 = np.float32(t)
+    return bool(np.float32(lo) <= t32 < np.float32(hi))
+
+
 def apply_right(traj: Trajectory, T: SE3) -> Trajectory:
     """Right-compose every pose with a fixed transform: T_i <- T_i * T."""
     q = T.q.expand(traj.poses.q.shape)
     t = T.t.expand(traj.poses.t.shape)
-    return Trajectory(traj.ts, se3.compose(traj.poses, SE3(q, t)))
+    return Trajectory(traj.ts, se3.compose(traj.poses, SE3(q, t)), traj.span)
 
 
 def apply_left(traj: Trajectory, T: SE3) -> Trajectory:
     """Left-compose every pose: T_i <- T * T_i."""
     q = T.q.expand(traj.poses.q.shape)
     t = T.t.expand(traj.poses.t.shape)
-    return Trajectory(traj.ts, se3.compose(SE3(q, t), traj.poses))
+    return Trajectory(traj.ts, se3.compose(SE3(q, t), traj.poses), traj.span)
 
 
 def slice_time(traj: Trajectory, t_start: float, t_stop: float, pad: int = 1) -> Trajectory:
@@ -101,4 +118,5 @@ def slice_time(traj: Trajectory, t_start: float, t_stop: float, pad: int = 1) ->
     ts = traj.ts.cpu().numpy()
     lo = max(0, int(np.searchsorted(ts, t_start, side="left")) - pad)
     hi = min(len(ts), int(np.searchsorted(ts, t_stop, side="right")) + pad)
-    return Trajectory(traj.ts[lo:hi], SE3(traj.poses.q[lo:hi], traj.poses.t[lo:hi]))
+    span = (float(ts[lo]), float(ts[hi - 1])) if hi > lo else None
+    return Trajectory(traj.ts[lo:hi], SE3(traj.poses.q[lo:hi], traj.poses.t[lo:hi]), span)

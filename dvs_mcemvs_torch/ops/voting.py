@@ -222,15 +222,17 @@ def splat_sort(
 ) -> torch.Tensor:
     """Sort + segment-sum backend: per block of `plane_block` planes, the
     flat voxel indices of every 4-corner vote are sorted, each run of equal
-    indices is summed, and one write of unique indices stores the run
-    totals.
+    indices is summed, and one write stores the run totals.
 
     A run's total is the difference of two running sums, as in the JAX
     package, but the running sum is float64 here: the JAX package's float32
     one steps by 1.0 once it passes 2^23, which a plane block of the
     headline chunk (1 Mi events x 4 taps x 8 planes) reaches, and its
     voxel totals (a few votes each) then lose whole votes.  In float64 a
-    total is as exact as float32 can hold it."""
+    total is as exact as float32 can hold it.  Every shape is fixed by the
+    inputs' (no `nonzero`), so the backend can be captured in a CUDA graph:
+    each run's end sum is written at its run number, a running count of the
+    ends before it, and the slots that end no run write into spare slots."""
     fx, fy, cx, cy = vcam_params
     K, P, _ = packets.xy_z0.shape
     E = K * P
@@ -239,7 +241,7 @@ def splat_sort(
     Z = depths.shape[0]
     HW = height * width
     key_dtype = torch.int32 if Z * HW < 2**31 else torch.int64
-    out = torch.zeros(Z * HW, dtype=torch.float32, device=xy.device)
+    out = torch.zeros(Z * HW + 1, dtype=torch.float32, device=xy.device)
     last = torch.ones(1, dtype=torch.bool, device=xy.device)
     for z_lo in range(0, Z, plane_block):
         sl = slice(z_lo, min(z_lo + plane_block, Z))
@@ -253,9 +255,16 @@ def splat_sort(
         csum = torch.cumsum((w4 * pw[None, :, None]).reshape(-1)[order].double(), 0)
         # A run of equal voxel indices ends where the next index differs; its
         # total is the running sum there less the one at the previous end.
-        ends = torch.nonzero(torch.cat([sidx[1:] != sidx[:-1], last])).squeeze(1)
-        out[sidx[ends].long()] = torch.diff(csum[ends], prepend=csum.new_zeros(1)).float()
-    return out.reshape(Z, height, width)
+        # Run r's running sum at its end goes to at_end[r + 1] (at_end[0] = 0,
+        # slots that end no run go to the spare at_end[n + 1]).
+        end = torch.cat([sidx[1:] != sidx[:-1], last])
+        n = end.shape[0]
+        run = torch.cumsum(end, 0) - end.long()
+        at_end = torch.zeros(n + 2, dtype=torch.float64, device=xy.device)
+        at_end.index_put_((torch.where(end, run + 1, n + 1),), csum)
+        slot = torch.where(end, sidx.long(), torch.full_like(sidx, Z * HW, dtype=torch.long))
+        out.index_put_((slot,), (csum - at_end[run]).float())
+    return out[:Z * HW].reshape(Z, height, width)
 
 
 SPLAT_BACKENDS = {

@@ -49,7 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.binning import bin_events
-from ..kernels.resample import banded_resample_fanin, banded_resample_sum
+from ..kernels.resample import (banded_resample_fanin, banded_resample_sum, cached_index,
+                                cached_items, fanin_tables, sum_tables)
 from .voting import WarpedPackets
 
 # Default z0-grid padding in bins (spec tokens px<N>/py<N>): events whose z0
@@ -298,14 +299,20 @@ def _merge_butterfly(hist, centers, depths, bounds, z0, vcam_params,
             txs_.append(bt_x)
 
         if radix >= _FANIN_MIN_RADIX:
-            # Group (q, n) = (parent range, node) holds its radix parents
-            # (q*N_prev + radix*n + k) and produces its radix child ranges j,
-            # each written to standard index (q*radix + j)*N + n.
             Ngrp = R_prev * N
-            qs = np.arange(R_prev)[:, None, None]
-            ns = np.arange(N)[None, :, None]
-            js = np.arange(radix)[None, None, :]
-            out_idx = ((qs * radix + js) * N + ns).reshape(Ngrp, radix)
+
+            def fanin_build(R_prev=R_prev, N=N, radix=radix, Ngrp=Ngrp):
+                # Group (q, n) = (parent range, node) holds its radix parents
+                # (q*N_prev + radix*n + k) and produces its radix child ranges
+                # j, each written to standard index (q*radix + j)*N + n.
+                qs = np.arange(R_prev)[:, None, None]
+                ns = np.arange(N)[None, :, None]
+                js = np.arange(radix)[None, None, :]
+                out_idx = ((qs * radix + js) * N + ns).reshape(Ngrp, radix)
+                return fanin_tables(out_idx, radix, radix * Ngrp)
+
+            items = cached_items(("butterfly-fanin", R_prev, N, radix), hist.device,
+                                 fanin_build)
 
             def fanin_maps(parts):
                 a = torch.cat(parts).reshape(R_prev, radix, N, radix)
@@ -315,21 +322,25 @@ def _merge_butterfly(hist, centers, depths, bounds, z0, vcam_params,
                 cur.reshape(Ngrp, radix, hs_, ws_),
                 fanin_maps(sys_), fanin_maps(tys_),
                 fanin_maps(sys_), fanin_maps(txs_),
-                out_idx.astype(np.int32), n_out=R * N, out_h=hs_, out_w=ws_,
-                out_dtype=dtype)
+                items, n_out=R * N, out_h=hs_, out_w=ws_, out_dtype=dtype)
         else:
-            # Child (r, n) gathers its radix parents from range r // radix.
-            rs = np.arange(R)[:, None, None]
-            ns = np.arange(N)[None, :, None]
-            ks = np.arange(radix)[None, None, :]
-            src = ((rs // radix) * N_prev + radix * ns + ks).reshape(R * N, radix)
+            def sum_build(R=R, N=N, N_prev=N_prev, radix=radix):
+                # Child (r, n) gathers its radix parents from range r // radix.
+                rs = np.arange(R)[:, None, None]
+                ns = np.arange(N)[None, :, None]
+                ks = np.arange(radix)[None, None, :]
+                return sum_tables(((rs // radix) * N_prev + radix * ns + ks).reshape(
+                    R * N, radix))
+
+            items = cached_items(("butterfly-sum", R, N, N_prev, radix), hist.device,
+                                 sum_build)
             NK = R * N
             sy = torch.cat(sys_).reshape(NK, radix)
             ty = torch.cat(tys_).reshape(NK, radix)
             tx = torch.cat(txs_).reshape(NK, radix)
             cur = banded_resample_sum(
                 cur, sy, ty, sy, tx, out_h=hs_, out_w=ws_, blocked=True,
-                src=src.astype(np.int32), out_dtype=dtype)
+                src=items, out_dtype=dtype)
         cen = tgt
     return cur.reshape(R, N, hs_, ws_), cen
 
@@ -373,22 +384,30 @@ def _sweep_planes_fanin(hist_seg, centers_s, depths, bounds, z0, vcam_params,
     fan-in call sweeps every segment; ragged segments are padded with
     clamped duplicate plane indices, which the fan-in wrapper writes once."""
     fx, fy, cx, cy = vcam_params
-    S = hist_seg.shape[0]
     Z = depths.shape[0]
     sx, tx, sy, ty = _affine_coeffs(
         centers_s, depths, z0, fx, fy, cx, cy, pad_x, pad_y, ss)  # (K, Z)
-    seg_lens = [bounds[s + 1] - bounds[s] for s in range(S)]
-    M = max(seg_lens)
-    pidx = np.stack([np.minimum(bounds[s] + np.arange(M), bounds[s + 1] - 1)
-                     for s in range(S)]).astype(np.int32)          # (S, M)
-    pidx_t = torch.as_tensor(pidx, dtype=torch.long, device=depths.device)
+    K = centers_s.shape[0]
+    items = cached_items(("sweep-fanin", tuple(bounds), K), depths.device,
+                         lambda: fanin_tables(_plane_rows(bounds), K, Z))
+    pidx_t = cached_index(("sweep-planes", tuple(bounds)), depths.device,
+                          lambda: _plane_rows(bounds))
 
     def gath(c):  # (K, Z) -> (S, M, K)
         return c[:, pidx_t].permute(1, 2, 0).contiguous()
 
     return banded_resample_fanin(
-        hist_seg, gath(sy), gath(ty), gath(sx), gath(tx), pidx,
+        hist_seg, gath(sy), gath(ty), gath(sx), gath(tx), items,
         n_out=Z, out_h=height, out_w=width)
+
+
+def _plane_rows(bounds) -> np.ndarray:
+    """(S, M) plane indices of each segment, M its longest, padded with the
+    segment's last plane (the fan-in writes each plane once)."""
+    S = len(bounds) - 1
+    M = max(bounds[s + 1] - bounds[s] for s in range(S))
+    return np.stack([np.minimum(bounds[s] + np.arange(M), bounds[s + 1] - 1)
+                     for s in range(S)])
 
 
 def _sweep_planes(hist, centers, depths, z0, vcam_params, width, height,

@@ -70,10 +70,11 @@ class ProcessResult:
 def place_reference_view(traj0: trajmod.Trajectory, ts: float,
                          rv_pos: float = 0.0) -> SE3:
     """RV at the left camera pose at `ts`, optionally shifted along the
-    stereo baseline by `rv_pos` metres.  Returns T_rv_w."""
-    T_w_l, valid = trajmod.pose_at(traj0, ts)
-    if not bool(valid):
+    stereo baseline by `rv_pos` metres.  Returns T_rv_w.  Raises where
+    `pose_at` calls `ts` invalid, decided on the host (`valid_at`)."""
+    if not trajmod.valid_at(traj0, ts):
         raise ValueError(f"reference-view time {ts} outside trajectory")
+    T_w_l, _ = trajmod.pose_at(traj0, ts)
     dev = traj0.device
     shift = SE3(torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev),
                 torch.tensor([rv_pos, 0.0, 0.0], device=dev))
@@ -109,9 +110,11 @@ def _evaluate_all(
 
 def _synchronize(t: torch.Tensor) -> None:
     """Wait for the work queued on `t`'s device (nothing to wait for on the
-    CPU)."""
+    CPU), then raise if a chunk voted refused weights
+    (`mapper.check_faults`)."""
     if t.device.type == "cuda":
         torch.cuda.synchronize(t.device)
+    mappermod.check_faults()
 
 
 def process_1(

@@ -85,7 +85,8 @@ def main() -> None:
             hist, *sweep_maps, out_h=cs.HEIGHT, out_w=cs.WIDTH, blocked=False),
     }
     # The plain versions once; every variant is held to them.
-    sources, src_idx, maps, items = resample.fanin_items(blocks, fsy, fty, fsx, ftx, out_idx)
+    sources, src_idx, maps, items = resample.fanin_items(blocks, fsy, fty, fsx, ftx, out_idx,
+                                                         cs.DIM_Z)
     want = {
         "merge": resample.banded_resample_reference(
             hist, torch.as_tensor(src, dtype=torch.long, device=dev), sy, ty, sy, tx,

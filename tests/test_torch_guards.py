@@ -196,10 +196,10 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
                         "block_step", "hbm_stream", "dyn_slice"}
     assert all(r["max_abs_err"] == 0.0 and r["bound_ms"] > 0 for r in res.values())
     assert res["hbm_stream"]["bound_by"] == "bytes"
-    # Calls that sync with the host (int8 weight check, kernel B's host index
-    # copies) cannot be captured in a CUDA graph and keep the loop timer.
-    assert sorted(n for n, r in res.items() if r["timer"] == "loop") == [
-        "banded_resample_fanin", "banded_resample_sum", "bin_events_int8"]
+    # No kernel's call syncs with the host any more (the int8 weight check
+    # sets a device flag, kernel B's index tables are cached on the device):
+    # every row is timed by CUDA graph, the loop timer beside it.
+    assert sorted(n for n, r in res.items() if r["timer"] == "loop") == []
     assert all("loop_ms" in r for r in res.values())
     # The on-chip ceiling needs the card's SM clock: none on the CPU.
     assert all(r["ceiling_ms"] is None and r["ceiling_share"] is None for r in res.values())
@@ -301,6 +301,26 @@ def test_chip_smoke_host_api_rehearses_on_cpu(tmp_path):
     assert rows[0]["within1"] > 0.5
     bf = chip_smoke.bf_probe_step(cpu, "SMALL", n_events=8192)
     assert bf["bf"] == bf["flat"] == 0.0
+
+
+def test_chip_smoke_programs_rehearse_on_cpu():
+    """Phase 12's steps at a small size on the CPU, where no program is
+    made: the comparison with eager refuses a run that replayed none, a
+    returned DSI stays fresh, a chunk of refused int8 weights raises at its
+    extraction (the fault flag the card reads), and the timing runs."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    cpu = torch.device("cpu")
+    workload = chip_smoke.build_workload(cpu, n_events=16384, width=96, height=64,
+                                         dim_z=20, n_pts=2000)
+    with pytest.raises(AssertionError, match="programs replayed"):
+        chip_smoke.program_vs_eager(cpu, workload, "hist:g4,seg4,bf,pl", needed=())
+    chip_smoke.fresh_output_step(cpu, workload, spec="hist:g4,seg4,bf,pl")
+    message = chip_smoke.refused_weights_step(cpu, workload, spec="hist:g4,seg4,bf,i8,pl")
+    assert message == binning.WEIGHT_FAULTS[1]
+    out = chip_smoke.program_timing_step(cpu, workload, spec="hist:g4,seg4,bf,pl", runs=1)
+    assert set(out) == {"programs", "eager"}
 
 
 @pytest.mark.parametrize("field,scale,agrees", [

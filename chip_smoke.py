@@ -65,7 +65,20 @@ Phases (each raises on failure, so the script exits non-zero):
                 (b) two spawned ranks sharing the card over gloo, on meshes
                 (2, 1) (event shards) and (1, 2) (plane shards, 50 planes a
                 rank, held per plane block), with the time of the staged
-                all-reduce of a fused-DSI-sized tensor; (c) the CLI as two
+                all-reduce of a fused-DSI-sized tensor; in (a) and on each
+                mesh of (b), each rank's step programs (CUDA graphs cut at
+                the collectives) against the same step under
+                `mapper.eager()`: the full step under the headline spec,
+                its int8 form and `scatter`, the voting step under the
+                headline spec (hist specs equal to the bit, `scatter`
+                within phase 3's tolerance, depth indices equal on
+                >= 99.9 %, a replay's launch counts equal to eager's, graph
+                launches a step equal to its compute segments), a result
+                unchanged by the next replay, refused weights raising the
+                binary check in the full step and the int8 check at the
+                caller's fault read after the voting step, seconds a chunk
+                of both in turns with one profiled chunk of each, capture
+                seconds; (c) the CLI as two
                 processes (--coordinator, --num_processes=2, --process_id) on
                 the esim fixture under process_method 1 and 2, against the
                 same run in one process.
@@ -93,7 +106,8 @@ Phases (each raises on failure, so the script exits non-zero):
                 in turns, one profiled chunk of each
                 (scripts/profile_torch_chunk.py), capture seconds per
                 program and the output copy's time.
-Phases 4-11 run the chunk on its programs, as a user's call does.
+Phases 4-11 run the chunk on its programs, as a user's call does, and
+phase 10 the sharded steps on theirs.
 Each phase logs its seconds; the line before the two result lines gives
 the total and each phase's share.
 Phase 3 also holds kernels A and B against their plain versions past the
@@ -1758,28 +1772,38 @@ def deep_chunk_phase(dev, workload, dim_z=DEEP_Z, needed=KERNELS_A_B) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def sharded_chunk(workload, mesh, step):
-    """The headline chunk through this rank's sharded `step` on `mesh`: the
-    padded inputs, this rank's event block, the step; synchronised."""
+def sharded_args(workload, mesh, tables, events=None):
+    """This rank's step arguments for the headline chunk (or `events`), as
+    the CLI's feed builds them: every camera's events padded to the bucket
+    and cut to the rank's block, and `tables` (`sharded.device_step_tables`,
+    built once) with the chunk's reference view."""
     from dvs_mcemvs_torch import mapper as mappermod, pipeline
     from dvs_mcemvs_torch.parallel import sharded
 
-    mappers, events, trajs, _ = workload
+    mappers, chunk, trajs, _ = workload
+    events = chunk if events is None else events
     n_event = mesh.size(0)
-    T_rv_w = pipeline.place_reference_view(trajs[0], 0.5)
     cap = mappermod.bucket_capacity(max(e.num for e in events), n_event * PACKET)
-    args = sharded.sharded_step_inputs(mappers, events, trajs, T_rv_w, n_event, PACKET,
-                                       capacity=cap)
-    out = step(*sharded.local_inputs(mesh, args))
+    T_rv_w = pipeline.place_reference_view(trajs[0], 0.5)
+    return sharded.local_inputs(mesh, sharded.sharded_step_inputs(
+        mappers, events, trajs, T_rv_w, n_event, PACKET, capacity=cap, tables=tables))
+
+
+def sharded_chunk(workload, mesh, step, tables):
+    """The headline chunk through this rank's sharded `step` on `mesh`: the
+    padded inputs, this rank's event block, the step; synchronised."""
+    out = step(*sharded_args(workload, mesh, tables))
     _sync(out["dsi"].device)
     return out
 
 
-def make_headline_step(workload, mesh, spec=HEADLINE_SPEC):
+def make_headline_step(workload, mesh, spec=HEADLINE_SPEC, kind="full"):
     from dvs_mcemvs_torch.parallel import sharded
 
     cfg = sharded.ShardedStepConfig(fusion_method=2, packet_size=PACKET, backend=spec)
-    return sharded.make_sharded_step(mesh, sharded.rig_spec_from_mappers(workload[0]), cfg)
+    make = sharded.make_sharded_step if kind == sharded.FULL else \
+        sharded.make_sharded_voting_step
+    return make(mesh, sharded.rig_spec_from_mappers(workload[0]), cfg)
 
 
 def compare_sharded(what, out, mesh, ref_dsi, ref_idx) -> dict:
@@ -1805,32 +1829,184 @@ def compare_sharded(what, out, mesh, ref_dsi, ref_idx) -> dict:
     return dict(l1=l1, mass=mass, equal=equal)
 
 
-def timed_sharded(dev, what, workload, mesh, step, runs, needed=KERNELS_A_B):
+def timed_sharded(dev, what, workload, mesh, step, tables, runs, needed=KERNELS_A_B):
     """One counted sharded chunk (launches from zero), then the median
     seconds of `runs` more.  Returns (first output, launches, median)."""
     zero_counts()
-    out = sharded_chunk(workload, mesh, step)
+    out = sharded_chunk(workload, mesh, step, tables)
     counts = read_counts()
     launches = {n: counts[n] for n in KERNELS_A_B}
     _check_launched(what, launches, needed)
-    median, seconds = median_seconds(lambda: sharded_chunk(workload, mesh, step), runs)
+    median, seconds = median_seconds(lambda: sharded_chunk(workload, mesh, step, tables), runs)
     log(f"  {what}: launches {launches}; seconds a chunk (median of {runs} after a warm-up) "
         f"{median:.6f} [{', '.join(f'{t:.6f}' for t in seconds)}]")
     return out, launches, median
 
 
+def _int8_form(spec: str) -> str:
+    """`spec` with int8 binning (I8_SPEC for the headline spec)."""
+    return spec.replace(",pl", ",i8,pl")
+
+
+def _step_outputs(out) -> dict:
+    return out if isinstance(out, dict) else {"dsi": out}
+
+
+def sharded_program_vs_eager(dev, what, workload, mesh, tables, spec, kind) -> dict:
+    """This rank's step of `kind` under `spec` inside `mapper.eager()`, then
+    on its program (captured on the first call unless held; the next call
+    replays it): the DSI block against eager's (a hist spec equal to the
+    bit, `scatter` within phase 3's tolerance and mass 1e-3), the depth
+    indices equal on PROGRAM_EQUAL of the pixels, a replay's launch counts
+    equal to eager's and its graph launches equal to the step's compute
+    segments (none on the CPU).  Raises beyond these."""
+    from dvs_mcemvs_torch import graphs, mapper as mappermod
+    from dvs_mcemvs_torch.parallel import sharded
+
+    step = make_headline_step(workload, mesh, spec, kind)
+    args = sharded_args(workload, mesh, tables)
+
+    def counted(fn):
+        zero_counts()
+        replays = graphs.Graph.replays_total
+        out = _step_outputs(fn())
+        _sync(dev)
+        counts = read_counts()
+        return out, {n: counts[n] for n in KERNELS_A_B}, graphs.Graph.replays_total - replays
+
+    with mappermod.eager():
+        want, eager_counts, _ = counted(lambda: step(*args))
+    counted(lambda: step(*args))
+    got, counts, replayed = counted(lambda: step(*args))
+    cfg = sharded.ShardedStepConfig(fusion_method=2, packet_size=PACKET, backend=spec)
+    plan = sharded.segment_plan(sharded.rig_spec_from_mappers(workload[0]), cfg, kind,
+                                (mesh.size(0), mesh.size(1)), mesh.get_local_rank("plane"))
+    segments = sum(isinstance(seg, list) for seg in plan) if dev.type == "cuda" else 0
+    name = f"{what}, {kind} step, {spec}, program vs eager"
+    if counts != eager_counts or replayed != segments:
+        raise AssertionError(f"{name}: a replay launched {counts} in {replayed} graphs; "
+                             f"eager {eager_counts}, segments {segments}")
+    check = compare_exact if spec.startswith("hist") else compare
+    err = check(f"{name}, DSI block", got["dsi"], want["dsi"])
+    out = dict(err=err, launches=counts, graphs=replayed)
+    if kind == sharded.FULL:
+        out["equal"] = float((got["depth_indices"] == want["depth_indices"]).double().mean())
+        if out["equal"] < PROGRAM_EQUAL:
+            raise AssertionError(f"{name}: depth indices equal on {out['equal']}")
+    log(f"  {name}: launches {counts} (eager {eager_counts}) from {replayed} graph "
+        f"launches; depth indices equal on {out.get('equal', 'n/a')}")
+    return out
+
+
+def refused_sharded_weights(what, workload, mesh, tables, spec) -> dict:
+    """A weight of 1.5 through the steps under the int8 `spec`: the full
+    step, which passes its weights as binary, raises the binary check at
+    its own fault read; the voting step, where only the int8 check
+    applies, leaves the flag to its caller's `mapper.check_faults()`,
+    which raises it.  A clean step of each then runs and checks clean."""
+    from dvs_mcemvs_torch import mapper as mappermod
+    from dvs_mcemvs_torch.kernels import binning
+    from dvs_mcemvs_torch.parallel import sharded
+
+    refused = list(sharded_args(workload, mesh, tables))
+    refused[3] = refused[3].copy()
+    refused[3][0, refused[3].shape[1] // 2] = 1.5
+    out = {}
+    for kind, check, want in ((sharded.FULL, "binary", binning.WEIGHT_FAULTS[0]),
+                              (sharded.VOTING, "int8", binning.WEIGHT_FAULTS[1])):
+        step = make_headline_step(workload, mesh, spec, kind)
+        try:
+            step(*refused)
+            mappermod.check_faults()
+        except ValueError as e:
+            out[f"refused_{check}"] = str(e)
+        else:
+            raise AssertionError(f"{what}: a {kind} step of refused weights ran clean")
+        if out[f"refused_{check}"] != want:
+            raise AssertionError(f"{what}: the {kind} step raised "
+                                 f"{out[f'refused_{check}']!r}, not the {check} check")
+        step(*sharded_args(workload, mesh, tables))
+        mappermod.check_faults()
+        log(f"  {what}: refused weights, {kind} step under {spec} ({check} check): raised "
+            f"{out[f'refused_{check}']!r}; the next step ran clean")
+    return out
+
+
+def sharded_programs_phase(dev, what, workload, mesh, tables, spec, runs) -> dict:
+    """Phase 10's programs on this rank of `mesh`: the full step under
+    `spec`, its int8 form and `scatter`, and the voting step under `spec`,
+    each against eager (`sharded_program_vs_eager`); a returned result
+    unchanged by the next replay (on other events); refused weights raise
+    the binary check in the full step and the int8 one in the voting step
+    (`refused_sharded_weights`); seconds a chunk of the full step on
+    programs and eagerly, in turns after the warm-up of each, and on the
+    card one profiled chunk of each (scripts/profile_torch_chunk.py); the
+    capture seconds of each program held."""
+    from dvs_mcemvs_torch import graphs, mapper as mappermod
+    from dvs_mcemvs_torch.parallel import sharded
+
+    res = {f"{kind} {s}": sharded_program_vs_eager(dev, what, workload, mesh, tables, s, kind)
+           for s, kind in ((spec, sharded.FULL), (_int8_form(spec), sharded.FULL),
+                           ("scatter", sharded.FULL), (spec, sharded.VOTING))}
+
+    step = make_headline_step(workload, mesh, spec)
+    first = step(*sharded_args(workload, mesh, tables))
+    kept = {k: v.clone() for k, v in first.items()}
+    swapped = [workload[1][1], workload[1][0]]
+    replays = graphs.Graph.replays_total
+    second = step(*sharded_args(workload, mesh, tables, swapped))
+    _sync(dev)
+    same = all(bool(torch.equal(first[k], kept[k])) for k in kept)
+    differ = not bool(torch.equal(first["dsi"], second["dsi"]))
+    log(f"  {what}: a result after the next replay (other events): unchanged {same}, the "
+        f"new one differs {differ}; graph launches {graphs.Graph.replays_total - replays}")
+    if not (same and differ):
+        raise AssertionError(f"{what}: a sharded program's result is not fresh")
+
+    res.update(refused_sharded_weights(what, workload, mesh, tables, _int8_form(spec)))
+
+    def chunk(mode):
+        with mappermod.eager() if mode == "eager" else contextlib.nullcontext():
+            sharded_chunk(workload, mesh, step, tables)
+
+    samples = {"programs": [], "eager": []}
+    for mode in samples:
+        chunk(mode)
+    for i in range(runs):
+        for mode in (("programs", "eager") if i % 2 == 0 else ("eager", "programs")):
+            t0 = time.perf_counter()
+            chunk(mode)
+            samples[mode].append(time.perf_counter() - t0)
+    for mode, secs in samples.items():
+        res[f"{mode}_s"] = float(np.median(secs))
+        log(f"  {what}: full step {spec} on {mode} (median of {runs}, in turns): "
+            f"{res[f'{mode}_s']:.6f} s [{', '.join(f'{t:.6f}' for t in secs)}]")
+    if dev.type == "cuda":
+        prof = script("profile_torch_chunk")
+        for mode in samples:
+            out = prof.profile_sharded_chunk(workload, mesh, step, tables, mode == "eager")
+            prof.report(out, f"  {what}: profiled full step, {mode}", top=6, log=log)
+            res[f"{mode}_idle_share"] = out["idle_share"]
+    res["capture_s"] = [round(p.capture_s, 3) for p in sharded.programs()]
+    log(f"  {what}: sharded programs held {len(res['capture_s'])}, capture seconds each "
+        f"{res['capture_s']}")
+    return res
+
+
 def _dist_rank(rank, world, coordinator, out_dir, dev_name, size, spec, runs, needed):
     """Phase 10 (b), one rank of two sharing the card: the headline chunk on
-    meshes DIST_MESHES against process_1 on the same card, and the
-    all-reduce of one fused-DSI-sized tensor over the event group."""
+    meshes DIST_MESHES against process_1 on the same card, the programs
+    against eager on each, and the all-reduce of one fused-DSI-sized tensor
+    over the event group."""
     import torch.distributed as dist
 
-    from dvs_mcemvs_torch.parallel import mesh as meshmod
+    from dvs_mcemvs_torch.parallel import mesh as meshmod, sharded
 
     dev = torch.device(dev_name)
     meshmod.init_distributed(coordinator, world, rank, dev)
     try:
         workload = build_workload(dev, **size)
+        tables = sharded.device_step_tables(workload[0], workload[2], dev)
         ref, dm = run_chunk(workload, spec)
         result = {"backend": dist.get_backend()}
         for shape, mesh_needs in DIST_MESHES.items():
@@ -1838,10 +2014,11 @@ def _dist_rank(rank, world, coordinator, out_dir, dev_name, size, spec, runs, ne
             mesh = meshmod.make_mesh(*shape, device=dev)
             what = f"rank {rank} of {world}, mesh {shape}"
             out, launches, median = timed_sharded(
-                dev, what, workload, mesh, make_headline_step(workload, mesh, spec), runs,
-                tuple(n for n in mesh_needs if n in needed))
+                dev, what, workload, mesh, make_headline_step(workload, mesh, spec), tables,
+                runs, tuple(n for n in mesh_needs if n in needed))
             stats = compare_sharded(what, out, mesh, ref.fused_dsi, dm.depth_indices)
-            result[name] = dict(launches=launches, seconds=median, **stats)
+            progs = sharded_programs_phase(dev, what, workload, mesh, tables, spec, runs)
+            result[name] = dict(launches=launches, seconds=median, programs=progs, **stats)
             if shape[0] > 1:
                 t = torch.ones_like(ref.fused_dsi)
                 group = mesh.get_group("event")
@@ -1979,24 +2156,28 @@ def distributed_phase(dev, workload, spec=HEADLINE_SPEC, runs=DIST_RUNS, rank_si
     processes.  Returns what each part measured."""
     import torch.distributed as dist
 
-    from dvs_mcemvs_torch.parallel import mesh as meshmod
+    from dvs_mcemvs_torch.parallel import mesh as meshmod, sharded
 
     ref, dm = run_chunk(workload, spec)
+    tables = sharded.device_step_tables(workload[0], workload[2], dev)
     meshmod.init_distributed(f"127.0.0.1:{meshmod.free_port()}", 1, 0, dev)
     try:
         backend = dist.get_backend()
         mesh = meshmod.make_mesh(1, 1, device=dev)
         what = f"(a) one rank over {backend}, mesh (1, 1), {spec}"
         out, launches, median = timed_sharded(dev, what, workload, mesh,
-                                               make_headline_step(workload, mesh, spec), runs,
-                                               needed)
+                                               make_headline_step(workload, mesh, spec),
+                                               tables, runs, needed)
         stats = compare_sharded(what, out, mesh, ref.fused_dsi, dm.depth_indices)
+        progs = sharded_programs_phase(dev, "(a)", workload, mesh, tables, spec, runs)
     finally:
+        sharded.clear_programs()
         meshmod.shutdown_distributed()
     _, seconds = median_seconds(lambda: run_chunk(workload, spec), runs)
     log(f"  process_1 + get_depth_map on the same chunk: median {np.median(seconds):.6f} s; "
         f"{smi}")
-    res = {"a": dict(backend=backend, launches=launches, seconds=median, **stats)}
+    res = {"a": dict(backend=backend, launches=launches, seconds=median, programs=progs,
+                     **stats)}
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as out_dir:
         t0 = time.perf_counter()
@@ -2005,7 +2186,9 @@ def distributed_phase(dev, workload, spec=HEADLINE_SPEC, runs=DIST_RUNS, rank_si
         ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(2)]
     log(f"  (b) two ranks on one device over {ranks[0]['backend']}: {time.perf_counter() - t0:.1f} s "
         f"with start-up; seconds a chunk, rank 0: " + ", ".join(
-            f"mesh {name} {ranks[0][name]['seconds']:.6f}" for name in ("2x1", "1x2")))
+            f"mesh {name} {ranks[0][name]['seconds']:.6f} (in turns: programs "
+            f"{ranks[0][name]['programs']['programs_s']:.6f}, eager "
+            f"{ranks[0][name]['programs']['eager_s']:.6f})" for name in ("2x1", "1x2")))
     res["b"] = ranks
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_ranks_") as workdir:
         res["c"] = cli_ranks_phase(dev, workdir)
@@ -2358,13 +2541,14 @@ def _gib(n: int) -> float:
 
 
 def program_summary() -> dict:
-    """The programs held, the process's captures and replays so far, and
-    the capture seconds of each program held."""
-    from dvs_mcemvs_torch import mapper as mappermod
+    """The chunk programs held, the process's graph captures and replays so
+    far (one graph a chunk program), and the capture seconds of each
+    program held."""
+    from dvs_mcemvs_torch import graphs, mapper as mappermod
 
     progs = mappermod.programs()
-    return dict(programs=len(progs), captures=mappermod.Program.captures_total,
-                replays=mappermod.Program.replays_total,
+    return dict(programs=len(progs), captures=graphs.Graph.captures_total,
+                replays=graphs.Graph.replays_total,
                 capture_s=[round(p.capture_s, 3) for p in progs])
 
 
@@ -2505,7 +2689,7 @@ def program_timing_step(dev, workload, spec=HEADLINE_SPEC, runs=PROGRAM_RUNS) ->
             prof.report(res, f"  profiled {mode} chunk", top=8, log=log)
             out[f"{mode}_idle_share"] = res["idle_share"]
         prog = [p for p in mappermod.programs() if p.body.backend == spec][-1]
-        dsi = prog.out
+        dsi = prog.graph.out
         copy_ms = cuda_graph_ms(lambda: dsi.clone())
         log(f"  the output copy of one camera's DSI ({_gib(nbytes(dsi)) * 1024:.1f} MiB): "
             f"{copy_ms:.4f} ms by graph; bound {bound(2 * nbytes(dsi), 0)['bound_ms']:.4f} ms")

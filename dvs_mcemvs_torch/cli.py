@@ -176,16 +176,17 @@ class _MeshFeed:
             self.mesh = meshmod.make_mesh(
                 *meshmod.pick_mesh_shape(ranks.world, cfg.dimZ, backend=backend), device)
         n_event = self.mesh.size(0)
-        self.cfg, self.ranks = cfg, ranks
+        self.cfg, self.ranks, self.device = cfg, ranks, device
         self.quantum = (n_event // ranks.world if ranks.per_process else n_event) \
             * cfg.packet_size
         log.info("rank %d of %d: mesh (event=%d, plane=%d), backend %s, %s", ranks.rank,
                  ranks.world, n_event, self.mesh.size(1), backend,
                  "each rank feeds its slice" if ranks.per_process else "shards of the chunk")
 
-    def inputs(self, mappers, events, trajs, T_rv_w):
+    def inputs(self, mappers, events, trajs, T_rv_w, tables):
         """(this rank's step arguments, events voted by all ranks), or None
-        when a camera's chunk is too small."""
+        when a camera's chunk is too small.  `tables` are the step's
+        `sharded.device_step_tables`, built once a run."""
         from .mapper import bucket_capacity
         from .parallel import sharded as shardedmod
 
@@ -195,7 +196,8 @@ class _MeshFeed:
                 return None
             cap = bucket_capacity(max(e.num for e in events), quantum)
             args = shardedmod.sharded_step_inputs(mappers, events, trajs, T_rv_w,
-                                                  self.mesh.size(0), packet, capacity=cap)
+                                                  self.mesh.size(0), packet, capacity=cap,
+                                                  tables=tables)
             return shardedmod.local_inputs(self.mesh, args), sum(e.num for e in events)
         if min(e.num for e in events) < ranks.world * quantum:
             return None
@@ -207,16 +209,19 @@ class _MeshFeed:
         # all-gather.
         cap = bucket_capacity(max(e.num for e in local), quantum)
         args = shardedmod.sharded_step_inputs_multihost(
-            self.mesh, mappers, local, trajs, T_rv_w, packet, local_capacity=cap)
+            self.mesh, mappers, local, trajs, T_rv_w, packet, local_capacity=cap,
+            tables=tables)
         return args, sum(e.num for e in local) * ranks.world
 
 
-def _make_mesh_runner(cfg: RunConfig, mappers, opts, backend: str, feed: _MeshFeed):
+def _make_mesh_runner(cfg: RunConfig, mappers, trajs, opts, backend: str, feed: _MeshFeed):
     """process_1 on the mesh: warp, voting, event all-reduce, fusion, the
     collapse and the extraction in one sharded step, as a process callable
-    taking a `sync` flag (wait for the device, so the time is the device's)."""
+    taking a `sync` flag (wait for the device, so the time is the device's).
+    The step's tables of the run's `mappers` and `trajs` are built here."""
     from .parallel import sharded as shardedmod
 
+    tables = shardedmod.device_step_tables(mappers, trajs, feed.device)
     step = shardedmod.make_sharded_step(
         feed.mesh, shardedmod.rig_spec_from_mappers(mappers),
         shardedmod.ShardedStepConfig(fusion_method=cfg.stereo_fusion,
@@ -226,7 +231,7 @@ def _make_mesh_runner(cfg: RunConfig, mappers, opts, backend: str, feed: _MeshFe
     def run_mesh(mps, evs, trs, ts, sync: bool) -> pipeline.ProcessResult:
         t0 = time.perf_counter()
         T_rv_w = pipeline.place_reference_view(trs[0], ts, cfg.rv_pos)
-        fed = feed.inputs(mps, evs, trs, T_rv_w)
+        fed = feed.inputs(mps, evs, trs, T_rv_w, tables)
         if fed is None:
             raise ValueError("chunk smaller than one packet (one quantum a rank)")
         args, n_ev = fed
@@ -245,13 +250,15 @@ def _make_mesh_runner(cfg: RunConfig, mappers, opts, backend: str, feed: _MeshFe
     return run_mesh
 
 
-def _make_mesh_pair_evaluator(cfg: RunConfig, mappers, backend: str, feed: _MeshFeed):
+def _make_mesh_pair_evaluator(cfg: RunConfig, mappers, trajs, backend: str,
+                              feed: _MeshFeed):
     """process_2/5's `evaluate_pair` on the mesh: each sub-interval's two
     camera DSIs voted by the sharded voting step and gathered whole on
     every rank, so the temporal accumulators and the extraction run as on
-    one card."""
+    one card.  The step's tables of the first two cameras are built here."""
     from .parallel import sharded as shardedmod
 
+    tables = shardedmod.device_step_tables(mappers[:2], trajs[:2], feed.device)
     step = shardedmod.make_sharded_voting_step(
         feed.mesh, shardedmod.rig_spec_from_mappers(mappers[:2]),
         shardedmod.ShardedStepConfig(fusion_method=cfg.stereo_fusion,
@@ -259,7 +266,7 @@ def _make_mesh_pair_evaluator(cfg: RunConfig, mappers, backend: str, feed: _Mesh
                                      plane_block=cfg.plane_block))
 
     def evaluate_pair(mps, evs, trs, T_rv_w):
-        fed = feed.inputs(mps[:2], evs, trs[:2], T_rv_w)
+        fed = feed.inputs(mps[:2], evs, trs[:2], T_rv_w, tables)
         if fed is None:
             return None, None
         out = shardedmod.gather_planes(feed.mesh, step(*fed[0]), dim=1)
@@ -436,9 +443,9 @@ def _run_on(cfg: RunConfig, device: torch.device, ranks: Optional[Ranks]) -> int
     if ranks is not None:
         feed = _MeshFeed(cfg, backend, device, ranks)
         if cfg.process_method == 1:
-            mesh_runner = _make_mesh_runner(cfg, mappers, opts, backend, feed)
+            mesh_runner = _make_mesh_runner(cfg, mappers, trajs, opts, backend, feed)
         else:
-            mesh_pairs = _make_mesh_pair_evaluator(cfg, mappers, backend, feed)
+            mesh_pairs = _make_mesh_pair_evaluator(cfg, mappers, trajs, backend, feed)
 
     n_calls = 0
 

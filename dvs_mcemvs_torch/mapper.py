@@ -13,22 +13,23 @@ later chunk of that key, one launch from the host.  Inside `eager()` (the
 counterpart of `jax.disable_jit()`), and on the CPU, the same body runs
 eagerly.  The body reads nothing back from the device: the binning's weight
 checks set a per-device fault flag, which `check_faults` reads once a chunk
-(`get_depth_map`, `pipeline._synchronize`).
+(`get_depth_map`, `pipeline._synchronize`).  The capture, the staging, the
+program cache, `eager()` and the fault flags are `graphs`', shared with the
+sharded step's programs (`parallel.sharded`).
 """
 
 from __future__ import annotations
 
-import collections
-import contextlib
 import dataclasses
-import threading
 import time
-from typing import Dict, Iterator, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .kernels import binning, resample
+from . import graphs
+from .graphs import ProgramCache, check_faults, eager  # noqa: F401  (the mapper's API)
+from .kernels import binning
 from .ops import camera as camops, extract, pointcloud as pcops, trajectory as trajmod, voting
 from .ops.camera import PinholeCamera, rectify_lut, virtual_camera
 from .ops.depth_vector import DepthVector, LINEAR
@@ -41,8 +42,6 @@ from .ops.se3 import SE3
 # MB at 640x480x100) and its input buffers; the least recently used program
 # beyond this is dropped with its graph.
 PROGRAM_CACHE_SIZE = 16
-# The kernel wrappers a body reaches, whose launch counts a replay adds.
-_COUNTED = (binning.bin_events, resample.banded_resample_sum, resample.banded_resample_fanin)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,48 +246,6 @@ def warp_chunk(
 # ---------------------------------------------------------------------------
 
 
-_eager = threading.local()
-
-
-@contextlib.contextmanager
-def eager() -> Iterator[None]:
-    """Inside (on this thread), `evaluate_dsi` runs the body eagerly on the
-    card instead of a program: the counterpart of `jax.disable_jit()`."""
-    prev = getattr(_eager, "on", False)
-    _eager.on = True
-    try:
-        yield
-    finally:
-        _eager.on = prev
-
-
-_FAULTS: Dict[torch.device, torch.Tensor] = {}
-_PENDING: set = set()
-_FAULTS_LOCK = threading.Lock()
-
-
-def _fault_flag(device: torch.device) -> torch.Tensor:
-    """The device's fault flag, which every body there sets (made once,
-    outside any capture)."""
-    with _FAULTS_LOCK:
-        if device not in _FAULTS:
-            _FAULTS[device] = binning.fault_flag(device)
-        return _FAULTS[device]
-
-
-def check_faults() -> None:
-    """Raise the binning's ValueError if a chunk voted since the last check
-    had weights its mode refuses (`binning.WEIGHT_FAULTS`): one read of each
-    device's fault flag where a chunk ran since.  `get_depth_map` and
-    `pipeline._synchronize` call it, so no depth map or saved file comes
-    from such a chunk."""
-    with _FAULTS_LOCK:
-        pending = [_FAULTS[d] for d in _PENDING]
-        _PENDING.clear()
-    for flag in pending:
-        binning.raise_weight_faults(flag)
-
-
 def program_key(mapper: Mapper, n_events: int, traj: trajmod.Trajectory,
                 packet_size: int = voting.DEFAULT_PACKET_SIZE, backend: str = "scatter",
                 plane_block: int = 8, rectify: str = "device", pad: str = "none") -> tuple:
@@ -306,43 +263,7 @@ def program_key(mapper: Mapper, n_events: int, traj: trajmod.Trajectory,
             id(traj.poses.t))
 
 
-class ProgramCache:
-    """A least-recently-used map of programs, closing each it drops."""
-
-    def __init__(self, size: int):
-        self.size = size
-        self._items: "collections.OrderedDict[tuple, object]" = collections.OrderedDict()
-
-    def __len__(self) -> int:
-        return len(self._items)
-
-    def keys(self) -> list:
-        return list(self._items)
-
-    def values(self) -> list:
-        return list(self._items.values())
-
-    def get(self, key):
-        prog = self._items.get(key)
-        if prog is not None:
-            self._items.move_to_end(key)
-        return prog
-
-    def put(self, key, prog) -> None:
-        self._items[key] = prog
-        self._items.move_to_end(key)
-        while len(self._items) > self.size:
-            _, old = self._items.popitem(last=False)
-            old.close()
-
-    def clear(self) -> None:
-        while self._items:
-            self._items.popitem(last=False)[1].close()
-
-
 _PROGRAMS = ProgramCache(PROGRAM_CACHE_SIZE)
-_POOLS: Dict[torch.device, tuple] = {}
-_SIDE: Dict[torch.device, torch.cuda.Stream] = {}
 
 
 def programs() -> list:
@@ -351,18 +272,11 @@ def programs() -> list:
 
 
 class Program:
-    """The body for one key, captured in a CUDA graph.
+    """The body for one key, captured in a CUDA graph (`graphs.Graph`).
 
     It owns the body's static inputs on the card (events, weights, poses,
-    T_rv_w), the mapper's constants, two pinned host buffers the events
-    are staged in by turns, and the graph's output.  Every program of a
-    device captures into one memory pool: replays are serialised on the
-    caller's stream and each output is copied out right after its replay,
-    so one graph's temporaries may reuse another's memory.  The class keeps
-    the process's counts of captures and replays."""
-
-    captures_total = 0
-    replays_total = 0
+    T_rv_w), the mapper's constants, the pinned buffers the events are
+    staged through (`graphs.Staging`), and the graph with its output."""
 
     def __init__(self, key: tuple, mapper: Mapper, body: _Body, n_static: int,
                  weighted: bool, traj: trajmod.Trajectory):
@@ -378,30 +292,17 @@ class Program:
                        torch.zeros(n_static, **f32, device=dev)]
         if weighted:
             self.events.append(torch.zeros(n_static, **f32, device=dev))
-        self.staging = [[torch.empty(e.shape, dtype=e.dtype, pin_memory=True)
-                         for e in self.events] for _ in range(2)]
-        self.staged = [None, None]  # the event after each staging buffer's copy
+        self.staging = graphs.Staging(self.events)
         self.poses = [torch.zeros_like(traj.ts), torch.zeros_like(traj.poses.q),
                       torch.zeros_like(traj.poses.t)]
         self.T_rv_w = [torch.zeros(4, **f32, device=dev), torch.zeros(3, **f32, device=dev)]
-        self.calls = 0
-        self.graph = self.out = self.tables = None
-        self.launches: Dict[object, int] = {}
+        self.graph: Optional[graphs.Graph] = None
         self.capture_s = 0.0
 
     def _load(self, events: Events, traj: trajmod.Trajectory, T_rv_w: SE3) -> None:
         """Stage the call's inputs into the static buffers on the current
-        stream: events through the pinned buffer not in flight."""
-        slot = self.calls % 2
-        self.calls += 1
-        if self.staged[slot] is not None:
-            self.staged[slot].synchronize()
-        host = self.staging[slot]
-        _stage(events, *(h.numpy() for h in host), *([None] * (4 - len(host))))
-        for dst, src in zip(self.events, host):
-            dst.copy_(src, non_blocking=True)
-        self.staged[slot] = torch.cuda.Event()
-        self.staged[slot].record()
+        stream: events through the pinned buffers not in flight."""
+        self.staging.load(lambda host: _stage(events, *host, *([None] * (4 - len(host)))))
         for dst, src in zip(self.poses, (traj.ts, traj.poses.q, traj.poses.t)):
             dst.copy_(src)
         self.T_rv_w[0].copy_(T_rv_w.q.reshape(4))
@@ -415,34 +316,14 @@ class Program:
 
     def capture(self, events: Events, traj: trajmod.Trajectory, T_rv_w: SE3,
                 flag: torch.Tensor) -> torch.Tensor:
-        """First use: stage the inputs, run the body eagerly on a side stream
-        (building the kernels and filling the plan and table caches), then
-        capture it.  Returns the eager run's DSI; the counts of its launches
-        stand, the capture's are taken back and added at every replay."""
+        """First use: stage the inputs, run the body eagerly
+        (`graphs.warm_up`), then capture it.  Returns the eager run's DSI;
+        the counts of its launches stand."""
         t0 = time.perf_counter()
-        dev = self.device
         self._load(events, traj, T_rv_w)
-        cur = torch.cuda.current_stream(dev)
-        if dev not in _SIDE:
-            _SIDE[dev] = torch.cuda.Stream(dev)
-        side = _SIDE[dev]
-        side.wait_stream(cur)
-        with torch.cuda.stream(side), binning.deferred_weight_checks(flag):
-            dsi = self._run()
-        cur.wait_stream(side)
-        dsi.record_stream(cur)
-        before = {fn: fn.launches for fn in _COUNTED}
-        pool = _POOLS.setdefault(dev, torch.cuda.graph_pool_handle())
-        self.graph = torch.cuda.CUDAGraph()
-        with resample.tables_in_use() as self.tables, \
-                binning.deferred_weight_checks(flag), \
-                torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
-            self.out = self._run()
-        for fn, n in before.items():
-            self.launches[fn] = fn.launches - n
-            fn.launches = n
+        dsi = graphs.warm_up(self.device, self._run, flag)
+        self.graph = graphs.Graph(self.device, self._run, flag)
         self.capture_s = time.perf_counter() - t0
-        Program.captures_total += 1
         return dsi
 
     def __call__(self, events: Events, traj: trajmod.Trajectory, T_rv_w: SE3) -> torch.Tensor:
@@ -450,16 +331,13 @@ class Program:
         fresh DSI."""
         self._load(events, traj, T_rv_w)
         self.graph.replay()
-        Program.replays_total += 1
-        for fn, n in self.launches.items():
-            fn.launches += n
-        return self.out.clone()
+        return self.graph.out.clone()
 
     def close(self) -> None:
         """Drop the graph and its buffers once the card is done with them."""
         if self.graph is not None:
             torch.cuda.synchronize(self.device)
-        self.graph = self.out = self.tables = None
+        self.graph = None
 
 
 def evaluate_dsi(
@@ -490,8 +368,8 @@ def evaluate_dsi(
     n_static = _n_static(events.num, packet_size, pad)
     body = _setup(mapper, packet_size, backend, plane_block, rectify)
     dev = traj.device
-    flag = _fault_flag(dev)
-    if dev.type == "cuda" and not getattr(_eager, "on", False):
+    flag = graphs.fault_flag(dev)
+    if graphs.use_programs(dev):
         key = program_key(mapper, events.num, traj, packet_size, backend, plane_block,
                           rectify, pad)
         prog = _PROGRAMS.get(key)
@@ -505,8 +383,7 @@ def evaluate_dsi(
         x, y, t, w = _host_events(events, packet_size, pad, dev)
         with binning.deferred_weight_checks(flag):
             dsi = _vote(body, _constants(mapper, body, dev), x, y, t, w, traj, T_rv_w)
-    with _FAULTS_LOCK:
-        _PENDING.add(dev)
+    graphs.mark_pending(dev)
     return dsi
 
 

@@ -48,14 +48,16 @@ def normalize_confidence(confidence: torch.Tensor,
     """Min-max normalize to [0, 255] and round half to even (cvRound), with
     the reference's (0,0)-pixel pinning when `max_confidence > 0`."""
     conf = confidence
+    # (fill_, not item assignment: assigning a number copies it from the
+    # host, which a CUDA graph capture refuses)
     if max_confidence > 0:
         conf = conf.clone()
-        conf[0, 0] = max_confidence
+        conf[0, 0].fill_(max_confidence)
     cmin = torch.min(conf)
     cmax = torch.max(conf)
     scale = 255.0 / torch.clamp(cmax - cmin, min=1e-30)
     norm = (conf - cmin) * scale
-    norm[0, 0] = 0.0
+    norm[0, 0].fill_(0.0)
     return torch.clamp(torch.round(norm), 0.0, 255.0)
 
 

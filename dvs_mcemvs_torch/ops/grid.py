@@ -10,7 +10,7 @@ two-grid fusion ops keep the reference's epsilon semantics.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -188,16 +188,33 @@ def _pad_index(n: int, before: int, after: int, border: str) -> np.ndarray:
     raise ValueError(f"unknown border {border!r}")
 
 
+_PAD_TABLES: Dict[tuple, Tuple[torch.Tensor, Optional[torch.Tensor]]] = {}
+
+
+def _pad_tables(n: int, before: int, after: int, border: str,
+                device: torch.device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """`_pad_index` on `device`: the gather index (sources of the zero pad
+    at 0) and, where the pad has zeros, the mask of kept positions.  Made
+    once per key and kept, so a call reads no host array: the first call
+    on a device (a program's eager warm-up) builds them outside any
+    capture."""
+    key = (n, before, after, border, device)
+    tables = _PAD_TABLES.get(key)
+    if tables is None:
+        idx = _pad_index(n, before, after, border)
+        keep = torch.as_tensor(idx >= 0, device=device) if (idx < 0).any() else None
+        tables = _PAD_TABLES[key] = (torch.as_tensor(np.maximum(idx, 0), device=device), keep)
+    return tables
+
+
 def _pad2d(img: torch.Tensor, ph: Tuple[int, int], pw: Tuple[int, int],
            border: str) -> torch.Tensor:
     H, W = img.shape[-2:]
     out = img
     for dim, n, (b, a) in ((-2, H, ph), (-1, W, pw)):
-        idx = _pad_index(n, b, a, border)
-        sel = torch.as_tensor(np.maximum(idx, 0), device=img.device)
+        sel, keep = _pad_tables(n, b, a, border, img.device)
         out = torch.index_select(out, dim, sel)
-        if (idx < 0).any():
-            keep = torch.as_tensor(idx >= 0, device=img.device)
+        if keep is not None:
             shape = [1] * out.ndim
             shape[dim] = -1
             out = out * keep.reshape(shape).to(out.dtype)

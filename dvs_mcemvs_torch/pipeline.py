@@ -226,7 +226,8 @@ def process_time_fusion(
     the count of sub-intervals that voted.  `on_subinterval(k, dsis)` sees
     each sub-interval's 'camera0', 'camera1' and 'fused' DSIs.
     `evaluate_pair(mappers, [ev0, ev1], trajs, T_rv_w) -> (d0, d1)` replaces
-    the per-camera voting (None for a DSI marks the sub-interval too small).
+    the per-camera voting (None for a DSI marks the sub-interval too small);
+    the fault flags are read after each pair (`mapper.check_faults`).
     """
     if len(mappers) != 2:
         raise ValueError("time fusion is defined for stereo rigs (2 cameras)")
@@ -246,6 +247,9 @@ def process_time_fusion(
         if evaluate_pair is not None:
             d0, d1 = evaluate_pair(mappers, [subs0[k], subs1[k]], trajs, T_rv_w)
             total_ev += subs0[k].num + subs1[k].num
+            # The pair's refused binning weights, if any, raise here (one read
+            # of the fault flags a sub-interval pair).
+            mappermod.check_faults()
         else:
             (d0, d1), _, n_ev = _evaluate_all(mappers, [subs0[k], subs1[k]], trajs,
                                               T_rv_w, vopts)

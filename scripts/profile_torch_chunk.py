@@ -8,6 +8,9 @@ time and idle share, device time by kernel (grouped by name); then a second
 profiled chunk with a device sync after each stage (warp+vote, fusion,
 extraction) for each stage's host launch calls, device operations and
 device busy time.  `--trace DIR` also writes the Chrome traces.
+`profile_sharded_chunk` profiles a chunk through a rank's sharded step the
+same way, with the whole step's launch calls and copies (chip_smoke.py
+phase 10 calls it on each of its meshes).
 
     python3 scripts/profile_torch_chunk.py [--trace out/]
 """
@@ -99,15 +102,6 @@ def profile_chunk(workload, spec: str, eager: bool, ts: float = 0.5, trace: str 
         prof.export_chrome_trace(os.path.join(trace, f"chunk_{tag}.json"))
         prof_staged.export_chrome_trace(os.path.join(trace, f"chunk_{tag}_stages.json"))
 
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = _busy_us(dev_events)
-    by_name = collections.defaultdict(lambda: [0, 0.0])
-    for e in dev_events:
-        by_name[e.name][0] += 1
-        by_name[e.name][1] += e.time_range.elapsed_us()
-    kernels = sorted(((name, n, us / 1e3) for name, (n, us) in by_name.items()),
-                     key=lambda r: -r[2])
-
     events_s = list(prof_staged.events())
     stages = {}
     for name in STAGES:
@@ -125,13 +119,50 @@ def profile_chunk(workload, spec: str, eager: bool, ts: float = 0.5, trace: str 
                             copies=sum(e.name in COPY_CALLS for e in host),
                             device_ops=len(dev), busy_ms=_busy_us(dev) / 1e3,
                             wall_ms=(hi - lo) / 1e3)
+    return dict(_summary(prof, wall_us), stages=stages)
+
+
+def _summary(prof, wall_us: float) -> dict:
+    """A profiled chunk's wall, device busy time and idle share, its host
+    launch calls and copies, and device time by kernel."""
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    host = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    busy = _busy_us(dev_events)
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in dev_events:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us()
+    kernels = sorted(((name, n, us / 1e3) for name, (n, us) in by_name.items()),
+                     key=lambda r: -r[2])
     return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3, idle_share=1 - busy / wall_us,
-                kernels=kernels, stages=stages)
+                launches=sum(e.name in LAUNCH_CALLS for e in host),
+                copies=sum(e.name in COPY_CALLS for e in host), device_ops=len(dev_events),
+                kernels=kernels, stages={})
+
+
+def profile_sharded_chunk(workload, mesh, step, tables, eager: bool) -> dict:
+    """Profile one chunk of `workload` through this rank's sharded `step`
+    on `mesh` (`chip_smoke.sharded_chunk`: the events padded on the host,
+    the step, a device sync), on its programs or eagerly, after two
+    warm-up chunks.  Returns `profile_chunk`'s keys (no stages)."""
+    import chip_smoke as cs
+    from dvs_mcemvs_torch import mapper as mappermod
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with mappermod.eager() if eager else contextlib.nullcontext():
+        for _ in range(2):
+            cs.sharded_chunk(workload, mesh, step, tables)
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            cs.sharded_chunk(workload, mesh, step, tables)
+            wall_us = (time.perf_counter() - t0) * 1e6
+    return _summary(prof, wall_us)
 
 
 def report(out: dict, what: str, top: int = 30, log=print) -> None:
     log(f"{what}: chunk wall {out['wall_ms']:.3f} ms (profiled); device busy "
-        f"{out['busy_ms']:.3f} ms; idle share {out['idle_share']:.3f}")
+        f"{out['busy_ms']:.3f} ms; idle share {out['idle_share']:.3f}; {out['launches']} "
+        f"launch calls, {out['copies']} copies, {out['device_ops']} device operations")
     for stage, r in out["stages"].items():
         log(f"  {stage}: {r['launches']} launch calls, {r['copies']} copies, "
             f"{r['device_ops']} device operations, device busy {r['busy_ms']:.3f} ms of "

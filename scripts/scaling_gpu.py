@@ -8,7 +8,10 @@ sharded step on each (event, plane) mesh of all the cards ((n, 1), (1, n),
 and (2, n / 2) when n > 2 is even), against process_1 + get_depth_map on
 its own card: fused-DSI relative L1, vote mass and equal depth indices (per
 plane block), the launches of kernels A and B from zero, and the seconds a
-chunk (median after a warm-up) beside process_1's.  Then the all-reduce of
+chunk (median after a warm-up) beside process_1's; then each rank's
+programs against the same steps under `mapper.eager()` and the seconds a
+chunk of both in turns (`chip_smoke.sharded_programs_phase`, phase 10's
+checks).  Then the all-reduce of
 one fused-DSI-sized tensor over all ranks, and the CLI's `--num_devices=n`
 on the esim fixture against `--num_devices=1`.  Prints one JSON line last.
 
@@ -46,12 +49,13 @@ def meshes(world: int, dim_z: int):
 def _rank(rank, world, coordinator, out_dir, dev_type, size, spec, runs, needed):
     import torch.distributed as dist
 
-    from dvs_mcemvs_torch.parallel import mesh as meshmod
+    from dvs_mcemvs_torch.parallel import mesh as meshmod, sharded
 
     dev = torch.device("cpu") if dev_type == "cpu" else torch.device("cuda", rank)
     meshmod.init_distributed(coordinator, world, rank, dev)
     try:
         workload = cs.build_workload(dev, **size)
+        tables = sharded.device_step_tables(workload[0], workload[2], dev)
         ref, dm = cs.run_chunk(workload, spec)
         one, _ = cs.median_seconds(lambda: cs.run_chunk(workload, spec), runs)
         res = {"backend": dist.get_backend(), "process_1_s": one}
@@ -60,10 +64,13 @@ def _rank(rank, world, coordinator, out_dir, dev_type, size, spec, runs, needed)
             mesh_needs = cs.KERNELS_A_B if shape[1] == 1 else cs.DIST_MESHES[(1, 2)]
             what = f"rank {rank} of {world}, mesh {shape}"
             out, launches, median = cs.timed_sharded(
-                dev, what, workload, mesh, cs.make_headline_step(workload, mesh, spec), runs,
-                tuple(n for n in mesh_needs if n in needed))
+                dev, what, workload, mesh, cs.make_headline_step(workload, mesh, spec), tables,
+                runs, tuple(n for n in mesh_needs if n in needed))
             stats = cs.compare_sharded(what, out, mesh, ref.fused_dsi, dm.depth_indices)
-            res[f"{shape[0]}x{shape[1]}"] = dict(launches=launches, seconds=median, **stats)
+            progs = cs.sharded_programs_phase(dev, what, workload, mesh, tables, spec, runs)
+            sharded.clear_programs()
+            res[f"{shape[0]}x{shape[1]}"] = dict(launches=launches, seconds=median,
+                                                 programs=progs, **stats)
         t = torch.ones_like(ref.fused_dsi)
 
         def reduce():
@@ -139,7 +146,8 @@ def main() -> int:
     report = scaling()
     r0 = report["ranks"][0]
     cs.log(f"rank 0 over {r0['backend']}: process_1 {r0['process_1_s']:.6f} s; " + "; ".join(
-        f"mesh {k} {v['seconds']:.6f} s" for k, v in r0.items() if "x" in k)
+        f"mesh {k} {v['seconds']:.6f} s (in turns: programs {v['programs']['programs_s']:.6f}, "
+        f"eager {v['programs']['eager_s']:.6f})" for k, v in r0.items() if "x" in k)
         + f"; all_reduce {r0['all_reduce_s']:.6f} s; {smi}")
     report["device"] = {"kind": torch.cuda.get_device_name(0),
                         "count": torch.cuda.device_count(), "nvidia_smi": smi}

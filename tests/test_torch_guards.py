@@ -19,7 +19,7 @@ from dvs_mcemvs_torch.kernels import binning, resample
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLICE_MODULES = [
     "dvs_mcemvs_torch", "dvs_mcemvs_torch.device", "dvs_mcemvs_torch.convert",
-    "dvs_mcemvs_torch.mapper", "dvs_mcemvs_torch.pipeline",
+    "dvs_mcemvs_torch.mapper", "dvs_mcemvs_torch.graphs", "dvs_mcemvs_torch.pipeline",
     "dvs_mcemvs_torch.ops.se3", "dvs_mcemvs_torch.ops.trajectory",
     "dvs_mcemvs_torch.ops.camera", "dvs_mcemvs_torch.ops.depth_vector",
     "dvs_mcemvs_torch.ops.voting", "dvs_mcemvs_torch.ops.voting_hist",

@@ -231,12 +231,8 @@ DIST_RUNS = 3
 DIST_MESHES = {(2, 1): KERNELS_A_B, (1, 2): ("bin_events", "banded_resample_sum")}
 CLI_PACKETS, PACKET_CLI = 64, 1024
 
-# The least time for a kernel's work on an H100 SXM (NVIDIA's data sheet):
-# its bytes (each input read once, each output written once) over the HBM3
-# rate, or its operations over the float32 rate outside the tensor cores --
-# every kernel here runs on the CUDA cores -- whichever is larger.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+# A kernel's bound (the least time for its work on an H100 SXM) comes from
+# the one work model, scripts/roofline_torch.py (`work_model()`).
 # `cuda_graph_ms` captures as many calls as fill a third of this many seconds.
 GRAPH_SECONDS = 0.15
 
@@ -331,22 +327,10 @@ def compare_exact(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return max_abs
 
 
-def bound(moved: float, ops: float) -> dict:
-    """The least time for `moved` bytes and `ops` operations, and which of
-    the two sets it."""
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def resample_ops(n_item_k: int, out_h: int, ws: int, out_w: int) -> int:
-    """Multiply-adds of the banded resample, two taps a value in each stage:
-    y stage (out_h, ws), x stage (out_h, out_w), per (item, source)."""
-    return n_item_k * 4 * (out_h * ws + out_h * out_w)
+def work_model():
+    """scripts/roofline_torch.py: the work model (bytes, operations, bound)
+    that phase 3's kernel rows and the roofline's stages share."""
+    return script("roofline_torch")
 
 
 # ---------------------------------------------------------------------------
@@ -713,6 +697,7 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
     ceiling is None but for the shared-memory probes on a card."""
     from dvs_mcemvs_torch.kernels import _build, binning, probes, resample
 
+    wm = work_model()
     rng = np.random.default_rng(0)
     results = {}
     f32 = dict(dtype=torch.float32, device=dev)
@@ -743,7 +728,6 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
             errs.append(compare_exact(name, got, want) if int8 else compare(name, got, want))
         w = torch.as_tensor(weights["weighted"], **f32)
         live = int((w != 0).sum())
-        out_bytes = G * h * ws * torch.finfo(out_dtype).bits // 8
 
         # The int8 mode's weight check sets a device flag, as in a program,
         # instead of reading the device: the call can be graph-timed.
@@ -756,8 +740,7 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
             max_abs_err=max(errs),
             **timings(run, lambda: plain_fn(hx, hy, w, h, ws).to(out_dtype), iters=iters,
                       plain_iters=iters),
-            # four tap products and adds for each live event
-            **bound(nbytes(hx, hy, w) + out_bytes, 8 * live))
+            **wm.bound(*wm.binning_work(G, E, h, ws, torch.finfo(out_dtype).bits // 8, live)))
         binning.raise_weight_faults(flag)
         return row
 
@@ -855,7 +838,8 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
     # copy, no sync), so its rows are graph-timed.
     results["banded_resample_sum"] = dict(
         max_abs_err=err, **timings(merge, merge_plain, iters=iters),
-        **bound(nbytes(hist, sy, ty, tx, src_t.int(), out), resample_ops(src.size, hs, ws, ws)))
+        **wm.bound(*wm.resample_sum_work(G, hs, ws, hist.element_size(), *src.shape, hs, ws,
+                                         out.element_size())))
 
     # Kernel B through banded_resample_fanin: the plane sweep, and K = 32.
     def fanin_case(label, S_, K_, Z_, n_plain):
@@ -878,10 +862,11 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
         got = run()
         err_ = compare(f"banded_resample_fanin {label} ({S_}x{out_idx.shape[1]}x{K_} -> "
                        f"{Z_}x{Ho}x{Wo}, duplicates in out_idx)", got, plain())
-        moved = nbytes(blocks, sy_, ty_, sx_, tx_, got) + out_idx.size * 4
+        work = wm.resample_fanin_work(S_, K_, hs, ws, blocks.element_size(), out_idx.shape[1],
+                                      len(items_out), Z_, Ho, Wo)
         return dict(max_abs_err=err_,
                     **timings(run, plain, iters=iters, plain_iters=n_plain),
-                    **bound(moved, resample_ops(len(items_out) * K_, Ho, ws, Wo)))
+                    **wm.bound(*work))
 
     sweep = fanin_case("sweep", S, K_sweep, Z, 2)
     wide = fanin_case(f"K={K_wide}", 2, K_wide, 8, 1)
@@ -898,23 +883,23 @@ def kernel_phase(dev, G=64, E=16384, hs=HS, ws=WS, hs_dense=HS_DENSE, Ho=HEIGHT,
     q_rows = {q + r for q in probes.offsets(probe_h) for r in range(probes.QV)}
     cases = {
         "smem_copy": (lambda: probes.smem_copy(a32), lambda: probes.smem_copy_reference(a32),
-                      None, 2 * nbytes(a32), 2 * a32.numel()),
+                      None, 2 * wm.nbytes(a32), 2 * a32.numel()),
         "block_step": (lambda: probes.block_step(tile),
                        lambda: probes.block_step_reference(tile),
-                       lambda: torch.add(tile, 1.0), 2 * nbytes(tile), tile.numel()),
+                       lambda: torch.add(tile, 1.0), 2 * wm.nbytes(tile), tile.numel()),
         "hbm_stream": (lambda: probes.hbm_stream(stream),
                        lambda: probes.hbm_stream_reference(stream),
                        lambda: torch.sum(stream, 0, keepdim=True, dtype=torch.float32),
-                       nbytes(stream) + 4 * stream[0].numel(), stream.numel()),
+                       wm.nbytes(stream) + 4 * stream[0].numel(), stream.numel()),
         # rows of `a` the offsets reach, read once; the whole output written
         "dyn_slice": (lambda: probes.dyn_slice(a32), lambda: probes.dyn_slice_reference(a32),
-                      None, 4 * probe_w * len(q_rows) + nbytes(a32),
+                      None, 4 * probe_w * len(q_rows) + wm.nbytes(a32),
                       probes.STEPS * probes.N_OFFSETS * probes.QV * probe_w),
     }
     for name, (run, plain, library, moved, ops) in cases.items():
         err = compare_exact(f"{name} probe", run(), plain())
         results[name] = dict(max_abs_err=err, **timings(run, plain, library, iters=iters),
-                             **bound(moved, ops))
+                             **wm.bound(moved, ops))
     # The shared-memory probes' on-chip ceiling: the bytes each is defined to
     # move through shared memory at the card's top SM clock.
     for r in results.values():
@@ -2536,6 +2521,13 @@ PROGRAM_SORT_L1, PROGRAM_EQUAL = 1e-6, 0.999
 PROGRAM_RUNS = 10
 
 
+def chunk_graphs(n_cams: int) -> int:
+    """Graph launches of a process_1 + get_depth_map chunk on programs: the
+    reference view's pose, each camera's warp and vote, the fusion, the
+    extraction."""
+    return 1 + n_cams + 1 + 1
+
+
 def _gib(n: int) -> float:
     return n / 2**30
 
@@ -2579,8 +2571,9 @@ def program_vs_eager(dev, workload, spec, needed=KERNELS_A_B) -> dict:
     (got, dm_got), counts, mem_replay = counted(lambda: run_chunk(workload, spec))
     n_cams = len(workload[1])
     replayed = program_summary()["replays"] - replays
-    if replayed != n_cams:
-        raise AssertionError(f"{spec}: {replayed} programs replayed, not {n_cams}")
+    if replayed != chunk_graphs(n_cams):
+        raise AssertionError(f"{spec}: {replayed} programs replayed, not "
+                             f"{chunk_graphs(n_cams)}")
     if counts != eager_counts:
         raise AssertionError(f"{spec}: a replay counts {counts}, eager {eager_counts}")
     _check_launched(f"{spec} on programs", counts, needed)
@@ -2688,11 +2681,14 @@ def program_timing_step(dev, workload, spec=HEADLINE_SPEC, runs=PROGRAM_RUNS) ->
             res = prof.profile_chunk(workload, spec, mode == "eager")
             prof.report(res, f"  profiled {mode} chunk", top=8, log=log)
             out[f"{mode}_idle_share"] = res["idle_share"]
+            out[f"{mode}_profile"] = res
         prog = [p for p in mappermod.programs() if p.body.backend == spec][-1]
         dsi = prog.graph.out
         copy_ms = cuda_graph_ms(lambda: dsi.clone())
-        log(f"  the output copy of one camera's DSI ({_gib(nbytes(dsi)) * 1024:.1f} MiB): "
-            f"{copy_ms:.4f} ms by graph; bound {bound(2 * nbytes(dsi), 0)['bound_ms']:.4f} ms")
+        wm = work_model()
+        log(f"  the output copy of one camera's DSI ({_gib(wm.nbytes(dsi)) * 1024:.1f} MiB): "
+            f"{copy_ms:.4f} ms by graph; bound {wm.bound(2 * wm.nbytes(dsi), 0)['bound_ms']:.4f} "
+            "ms")
         out["copy_ms"] = copy_ms
         out.update(program_call_parts(dev, workload, prog))
     return out
@@ -2742,6 +2738,330 @@ def programs_phase(dev, workload, specs=PROGRAM_SPECS, runs=PROGRAM_RUNS) -> dic
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: whole-chunk programs (the reference view, fusion, extraction,
+# the temporal step) and events already on the card
+# ---------------------------------------------------------------------------
+
+# Specs of (a): the headline and its int8 form are equal to eager to the bit
+# (the same kernels on the same inputs in the same order); `scatter`'s
+# atomic `index_add_` order changes from run to run (phase 3's tolerance,
+# indices equal on PROGRAM_EQUAL).  (b) extracts under every collapse method.
+WHOLE_SPECS = (HEADLINE_SPEC, I8_SPEC, "scatter")
+COLLAPSE_METHODS = (-1, 0, 1, 2, 3, 4)
+MAP_NAMES = ("depth", "confidence", "mask", "depth_indices")
+
+
+def _chunk_outputs(res, dm) -> dict:
+    """A chunk's fused DSI and its four maps, by name."""
+    return {"fused": res.fused_dsi, **{k: getattr(dm, k) for k in MAP_NAMES}}
+
+
+def _graph_launches(fn):
+    """fn()'s result and the graph launches it made (synchronised)."""
+    from dvs_mcemvs_torch import graphs
+
+    replays = graphs.Graph.replays_total
+    out = fn()
+    return out, graphs.Graph.replays_total - replays
+
+
+def _expected_graphs(dev, n: int) -> int:
+    return n if dev.type == "cuda" else 0
+
+
+def _equal_outputs(what: str, got: dict, want: dict) -> float:
+    """Every tensor of `got` equal to `want`'s to the bit; returns 0."""
+    return max(compare_exact(f"{what} {k}", got[k], want[k]) for k in want)
+
+
+def whole_chunk_vs_eager(dev, workload, spec) -> dict:
+    """process_1 + get_depth_map under `spec` inside `mapper.eager()`, then
+    on programs (captured unless held), then replayed: the fused DSI and
+    the four maps equal to eager's to the bit under a hist spec; under
+    `scatter` the fused DSI within phase 3's tolerance and the depth
+    indices equal on PROGRAM_EQUAL of the pixels; a replayed chunk makes
+    `chunk_graphs` graph launches.  Raises beyond these."""
+    from dvs_mcemvs_torch import mapper as mappermod
+
+    with mappermod.eager():
+        want = _chunk_outputs(*run_chunk(workload, spec))
+    run_chunk(workload, spec)
+    got, replayed = _graph_launches(lambda: _chunk_outputs(*run_chunk(workload, spec)))
+    what = f"{spec} whole chunk, programs vs eager:"
+    expected = _expected_graphs(dev, chunk_graphs(len(workload[1])))
+    if replayed != expected:
+        raise AssertionError(f"{what} {replayed} graph launches, not {expected}")
+    if spec.startswith("hist"):
+        err = _equal_outputs(what, got, want)
+        equal = 1.0
+    else:
+        err = compare(f"{what} fused", got["fused"], want["fused"])
+        equal = float((got["depth_indices"] == want["depth_indices"]).double().mean())
+        if equal < PROGRAM_EQUAL:
+            raise AssertionError(f"{what} depth indices equal on {equal}")
+    log(f"  {what} graph launches a chunk {replayed} (the reference view, 2 cameras, the "
+        f"fusion, the extraction); depth indices equal on {equal:.6f}")
+    return dict(err=err, equal=equal, graphs=replayed)
+
+
+def whole_chunk_fresh_step(dev, workload, spec=HEADLINE_SPEC) -> None:
+    """A chunk's fused DSI and maps, returned by the programs, stay as they
+    were after the next chunk (other events) replays them."""
+    mappers, events, trajs, rig = workload
+    first = _chunk_outputs(*run_chunk(workload, spec))
+    kept = {k: v.clone() for k, v in first.items()}
+    second = _chunk_outputs(*run_chunk((mappers, events[::-1], trajs, rig), spec))
+    same = all(bool(torch.equal(first[k], kept[k])) for k in kept)
+    differ = not bool(torch.equal(first["fused"], second["fused"]))
+    log(f"  a chunk's fused DSI and maps after the next chunk's replays: unchanged {same}; "
+        f"the next chunk's differ {differ}")
+    if not (same and differ):
+        raise AssertionError("a whole-chunk program's result is not fresh")
+
+
+def whole_chunk_memory(dev, workload, spec=HEADLINE_SPEC) -> dict:
+    """Every program of the chunk captured afresh (the programs held are
+    closed first): device memory held before and at the peak of each
+    capture, GiB.  Returns {program: (before, peak)}."""
+    from dvs_mcemvs_torch import mapper as mappermod, pipeline
+    from dvs_mcemvs_torch.ops import extract
+
+    mappers, events, trajs, _ = workload
+    mappermod.clear_programs()
+    pipeline.clear_programs()
+    out = {}
+
+    def peak(name, fn):
+        _sync(dev)
+        _reset_peak(dev)
+        before = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        res = fn()
+        _sync(dev)
+        after = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        out[name] = (_gib(before), _gib(after))
+        return res
+
+    T_rv_w = peak("reference view", lambda: pipeline.place_reference_view(trajs[0], 0.5))
+    kw = dict(packet_size=PACKET, backend=spec, pad="bucket")
+    dsis = [peak(f"camera{c}", lambda c=c: mappermod.evaluate_dsi(
+        mappers[c], events[c], trajs[c], T_rv_w, **kw)) for c in range(len(events))]
+    fused = peak("fusion", lambda: pipeline.fuse_dsis(dsis, 2))
+    peak("extraction", lambda: mappermod.get_depth_map(mappers[0], fused,
+                                                       extract.DepthMapOptions()))
+    log("  device memory held before / at the peak of each program's capture, GiB: "
+        + "; ".join(f"{k} {b:.3f} / {p:.3f}" for k, (b, p) in out.items()))
+    return out
+
+
+def extraction_programs_step(dev, workload, fused, spec=HEADLINE_SPEC, dim_z=DEEP_Z) -> dict:
+    """The extraction program against `mapper.eager()`, equal to the bit,
+    under every collapse method on the headline chunk's fused DSI, and on a
+    `dim_z`-plane chunk's (more than 256: the gather + sort median).  Each
+    replay is one graph launch.  Returns {case: seconds of the replay}."""
+    from dvs_mcemvs_torch import mapper as mappermod, pipeline
+    from dvs_mcemvs_torch.ops import extract
+
+    mappers, events, trajs, rig = workload
+    dv = mappers[0].depth_vec
+    deep = mappermod.make_mapper(rig.cam, mappermod.DsiShape(
+        dim_z=dim_z, min_depth=dv.min_depth, max_depth=dv.max_depth))
+    vopts = pipeline.VotingOptions(packet_size=PACKET, backend=spec, pad_policy="bucket")
+    deep_fused = pipeline.process_1([deep, deep], events, trajs, 0.5, stereo_fusion=2,
+                                    vopts=vopts).fused_dsi
+    cases = [(f"collapse_method {m}", mappers[0], fused, m) for m in COLLAPSE_METHODS]
+    cases.append((f"{dim_z} planes", deep, deep_fused, -1))
+    out = {}
+    for what, mapper, dsi, method in cases:
+        opts = extract.DepthMapOptions(collapse_method=method)
+        with mappermod.eager():
+            want = mappermod.get_depth_map(mapper, dsi, opts)._asdict()
+        mappermod.get_depth_map(mapper, dsi, opts)
+        t0 = time.perf_counter()
+        got, replayed = _graph_launches(
+            lambda: mappermod.get_depth_map(mapper, dsi, opts)._asdict())
+        _sync(dev)
+        out[what] = time.perf_counter() - t0
+        if replayed != _expected_graphs(dev, 1):
+            raise AssertionError(f"extraction {what}: {replayed} graph launches")
+        _equal_outputs(f"extraction program vs eager, {what}:",
+                       {k: got[k] for k in MAP_NAMES}, {k: want[k] for k in MAP_NAMES})
+    log("  extraction replays, s (one graph launch each, synchronised): "
+        + ", ".join(f"{k} {v:.6f}" for k, v in out.items()))
+    return out
+
+
+def temporal_programs_step(dev, workload, spec=HEADLINE_SPEC, intervals=N_INTERVALS,
+                           runs=3) -> dict:
+    """process_2 (AM and HM, `intervals` sub-intervals) on programs against
+    `mapper.eager()`: every output DSI equal to the bit; a replayed call's
+    graph launches (the reference view, each sub-interval's cameras and
+    temporal step, the finalisation); seconds of both in turns (median of
+    `runs` after a warm-up).  Returns {method: {...}}."""
+    from dvs_mcemvs_torch import mapper as mappermod, pipeline
+
+    mappers, events, trajs, _ = workload
+    vopts = pipeline.VotingOptions(packet_size=PACKET, backend=spec, pad_policy="bucket")
+    n_cams = len(events)
+    out = {}
+    for fusion, name in ((pipeline.TEMPORAL_AM, "AM"), (pipeline.TEMPORAL_HM, "HM")):
+        def call(mode):
+            with mappermod.eager() if mode == "eager" else contextlib.nullcontext():
+                res = pipeline.process_2(mappers, events, trajs, 0.5, stereo_fusion=2,
+                                         temporal_fusion=fusion, num_intervals=intervals,
+                                         vopts=vopts)
+                _sync(dev)
+            return {"fused": res.fused_dsi, **res.dsis}
+
+        want = call("eager")
+        _reset_peak(dev)
+        call("programs")
+        got, replayed = _graph_launches(lambda: call("programs"))
+        expected = _expected_graphs(dev, 1 + intervals * (n_cams + 1) + 1)
+        what = f"process_2 {name} ({intervals} sub-intervals, {spec}), programs vs eager:"
+        if replayed != expected:
+            raise AssertionError(f"{what} {replayed} graph launches, not {expected}")
+        _equal_outputs(what, got, want)
+        del got, want
+        samples = {"programs": [], "eager": []}
+        for i in range(runs):
+            for mode in (("programs", "eager") if i % 2 == 0 else ("eager", "programs")):
+                t0 = time.perf_counter()
+                call(mode)
+                samples[mode].append(time.perf_counter() - t0)
+        med = {mode: float(np.median(v)) for mode, v in samples.items()}
+        text = {mode: f"{med[mode]:.6f} [{', '.join(f'{t:.6f}' for t in v)}]"
+                for mode, v in samples.items()}
+        log(f"  {what} {replayed} graph launches a call; seconds (median of {runs}, in "
+            f"turns) programs {text['programs']}, eager {text['eager']}; peak device memory "
+            f"{_peak(dev)}")
+        out[name] = dict(graphs=replayed, **med)
+    return out
+
+
+def device_events_step(dev, workload, spec=HEADLINE_SPEC, runs=5) -> dict:
+    """The headline chunk's events as tensors on the card against the same
+    events as host arrays (pad="bucket"): each camera's DSI equal to the
+    bit on programs and eagerly; a time window by binary search on the card
+    equal to the host's; one camera's staging into its program (host: the
+    pinned buffers and their copies, host clock; card: device-to-device
+    copies, host clock and device time between CUDA events); chunk seconds
+    of both in turns (median of `runs`)."""
+    from dvs_mcemvs_torch import mapper as mappermod, pipeline
+    from dvs_mcemvs_torch.mapper import Events
+
+    mappers, events, trajs, rig = workload
+    on_card = [Events(*(torch.as_tensor(a, device=dev) for a in (e.x, e.y, e.t)))
+               for e in events]
+    T_rv_w = pipeline.place_reference_view(trajs[0], 0.5)
+    kw = dict(packet_size=PACKET, backend=spec, pad="bucket")
+    for mode in ("programs", "eager"):
+        with mappermod.eager() if mode == "eager" else contextlib.nullcontext():
+            for c in range(len(events)):
+                want = mappermod.evaluate_dsi(mappers[c], events[c], trajs[c], T_rv_w, **kw)
+                got = mappermod.evaluate_dsi(mappers[c], on_card[c], trajs[c], T_rv_w, **kw)
+                compare_exact(f"events on the card vs on the host, camera{c}, {mode}", got,
+                              want)
+    t = events[0].t
+    t0, t1 = float(t[len(t) // 5]), float(t[len(t) // 2])
+    n_host, n_card = events[0].time_window(t0, t1).num, on_card[0].time_window(t0, t1).num
+    log(f"  time_window [{t0:.6f}, {t1:.6f}]: host {n_host} events, card {n_card}")
+    if n_host != n_card:
+        raise AssertionError("a time window on the card differs from the host's")
+    out = {}
+    if dev.type == "cuda":
+        key = mappermod.program_key(mappers[0], events[0].num, trajs[0], PACKET, spec, 8,
+                                    "device", "bucket")
+        prog = mappermod._PROGRAMS.get(key)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        parts = {"host": [], "card": [], "card_device": []}
+        for _ in range(runs):
+            for where, ev in (("host", events[0]), ("card", on_card[0])):
+                torch.cuda.synchronize()
+                start.record()
+                t_0 = time.perf_counter()
+                prog._load(ev, trajs[0], T_rv_w)
+                parts[where].append(1e3 * (time.perf_counter() - t_0))
+                end.record()
+                end.synchronize()
+                if where == "card":
+                    parts["card_device"].append(start.elapsed_time(end))
+        out = {k: float(np.median(v)) for k, v in parts.items()}
+        log(f"  one camera's staging into its program, median of {runs}: host events "
+            f"{out['host']:.3f} ms of host time; events on the card {out['card']:.3f} ms of "
+            f"host time, {out['card_device']:.3f} ms of device copies")
+    samples = {"host": [], "card": []}
+    card_workload = (mappers, on_card, trajs, rig)
+    for wl in (workload, card_workload):
+        run_chunk(wl, spec)
+    for i in range(runs):
+        for where in (("host", "card") if i % 2 == 0 else ("card", "host")):
+            t_0 = time.perf_counter()
+            run_chunk(workload if where == "host" else card_workload, spec)
+            samples[where].append(time.perf_counter() - t_0)
+    for where, v in samples.items():
+        out[f"chunk_{where}_s"] = float(np.median(v))
+    log(f"  chunk on programs (median of {runs}, in turns): events on the host "
+        f"{out['chunk_host_s']:.6f} s, on the card {out['chunk_card_s']:.6f} s")
+    return out
+
+
+def stage_reports_step(dev, workload, kernels: dict, spec=HEADLINE_SPEC) -> dict:
+    """scripts/roofline_torch.py and scripts/profile_torch_chunk.py (the
+    vote and extraction splits, a process_2 AM call) on the headline chunk,
+    each printing one JSON line; the roofline's kernel stages must carry
+    phase 3's bounds (`kernels`: kernel_phase's rows), the same work model
+    on the same shapes: binning and the sweep one call each, the merge two
+    levels of phase 3's one."""
+    report = script("roofline_torch").run(workload, spec, log=log)
+    print(json.dumps({"roofline": report}), flush=True)
+    pairs = (("binning", "bin_events", 1), ("merge", "banded_resample_sum", 2),
+             ("sweep", "banded_resample_fanin", 1))
+    for stage, row, calls in pairs:
+        got, want = report["stages"][stage]["bound_ms"], calls * kernels[row]["bound_ms"]
+        log(f"  roofline {stage} bound {got:.6f} ms; phase 3's {row} x {calls} {want:.6f} ms")
+        if abs(got - want) > 1e-9 * want:
+            raise AssertionError(f"the roofline's {stage} bound is not phase 3's")
+    prof = script("profile_torch_chunk").run(workload, stages=("vote", "extract"), process=2,
+                                             spec=spec, log=log)
+    # (the kernel lists of the process_2 profiles are logged above)
+    print(json.dumps({"stage_profile": {split: {k: v for k, v in rows.items() if k != "kernels"}
+                                        for split, rows in prof.items()}}), flush=True)
+    return dict(roofline=report, profile=prof)
+
+
+def whole_chunk_phase(dev, workload, kernels: dict, timing: dict, specs=WHOLE_SPECS,
+                      spec=HEADLINE_SPEC, dim_z=DEEP_Z) -> dict:
+    """Phase 13's steps: (a) the whole chunk on programs against eager under
+    WHOLE_SPECS, a fresh result, each program's memory, the launch calls of
+    phase 12's profiled chunks (`timing`: program_timing_step's); (b) the
+    extraction program under every collapse method and at DEEP_Z planes; (c)
+    process_2 AM and HM; (d) events on the card; (e) the roofline and the
+    stage profiler (`kernels`: kernel_phase's rows)."""
+    out = {"memory": whole_chunk_memory(dev, workload, spec)}
+    for s in specs:
+        out[s] = whole_chunk_vs_eager(dev, workload, s)
+    whole_chunk_fresh_step(dev, workload, spec)
+    if dev.type == "cuda":
+        launches = {mode: timing[f"{mode}_profile"]["launches"] for mode in ("programs", "eager")}
+        log(f"  profiled chunk (phase 12): launch calls on programs {launches['programs']}, "
+            f"eager {launches['eager']}; idle share {timing['programs_idle_share']:.3f} / "
+            f"{timing['eager_idle_share']:.3f}; seconds {timing['programs']:.6f} / "
+            f"{timing['eager']:.6f}")
+        if launches["programs"] != chunk_graphs(len(workload[1])):
+            raise AssertionError(f"a chunk on programs made {launches['programs']} launch "
+                                 f"calls, not its {chunk_graphs(len(workload[1]))} graphs")
+        out["launches"] = launches
+    fused = run_chunk(workload, spec)[0].fused_dsi
+    out["extraction"] = extraction_programs_step(dev, workload, fused, spec, dim_z)
+    del fused
+    out["temporal"] = temporal_programs_step(dev, workload, spec)
+    out["events"] = device_events_step(dev, workload, spec)
+    if dev.type == "cuda":
+        out.update(stage_reports_step(dev, workload, kernels, spec))
+    return out
+
+
 def optional_modules() -> str:
     """Which of the optional host packages import here."""
     import importlib
@@ -2776,7 +3096,7 @@ def main() -> int:
             log(f"  phase {len(marks)} in {marks[-1]:.1f} s")
         if title:
             marks.append(now)
-            log(f"[{len(marks)}/12] {title}")
+            log(f"[{len(marks)}/13] {title}")
 
     dev = require_cuda()
     smi = nvidia_smi_line()
@@ -2857,7 +3177,11 @@ def main() -> int:
 
     phase(f"programs: the chunk's CUDA graphs against mapper.eager() under every spec; "
           f"{smi}")
-    programs_phase(dev, workload)
+    programs = programs_phase(dev, workload)
+
+    phase(f"whole-chunk programs: the reference view, fusion and extraction, process_2's "
+          f"temporal step, events on the card, the roofline and the stage profiler; {smi}")
+    whole_chunk_phase(dev, workload, results, programs["timing"])
     phase()
 
     binning_src = "dvs_mcemvs_torch/csrc/binning.cu"

@@ -1,6 +1,8 @@
 """CUDA-graph programs: the machinery that the chunk programs
-(`mapper.evaluate_dsi`) and the sharded step programs (`parallel.sharded`)
-share, the counterpart of the JAX package's `jax.jit`.
+(`mapper.evaluate_dsi`), the whole-chunk programs (`mapper.get_depth_map`'s
+extraction, `pipeline`'s fusion and temporal steps) and the sharded step
+programs (`parallel.sharded`) share, the counterpart of the JAX package's
+`jax.jit`.
 
 A program owns a body's static inputs on the card and the CUDA graphs
 captured from it.  `Graph` captures a function once into the device's one
@@ -8,9 +10,11 @@ memory pool, and each replay adds the kernel launches its capture recorded;
 `warm_up` runs the body eagerly on a side stream before the first capture
 (building the kernels, filling the plan and table caches); `Staging` moves a
 call's host arrays into static buffers through two pinned buffers used in
-turn; `ProgramCache` keeps the programs of a kind, dropping the least
-recently used.  `eager()` turns every program off on its thread (the
-counterpart of `jax.disable_jit()`).
+turn; `Captured` is the program of a body over static device tensors (the
+caller's tensors copied in on the card, fresh copies of the result out);
+`ProgramCache` keeps the programs of a kind, dropping the least recently
+used.  `eager()` turns every program off on its thread (the counterpart of
+`jax.disable_jit()`).
 
 A body reads nothing back from the card: the binning's weight checks set a
 per-device fault flag (`fault_flag`), which `check_faults` reads once a
@@ -22,7 +26,8 @@ from __future__ import annotations
 import collections
 import contextlib
 import threading
-from typing import Callable, Dict, Iterator, List
+import time
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -95,11 +100,22 @@ def check_faults() -> None:
 
 
 class ProgramCache:
-    """A least-recently-used map of programs, closing each it drops."""
+    """A least-recently-used map of programs, closing each it drops.  Each
+    thread has a map of its own: a thread's programs live in its own graph
+    pool (`Graph`), so threads that run programs at once (the CLI's save
+    workers extract depth maps beside the main thread's chunks) never
+    replay graphs that share memory."""
 
     def __init__(self, size: int):
         self.size = size
-        self._items: "collections.OrderedDict[tuple, object]" = collections.OrderedDict()
+        self._local = threading.local()
+
+    @property
+    def _items(self) -> "collections.OrderedDict[tuple, object]":
+        items = getattr(self._local, "items", None)
+        if items is None:
+            items = self._local.items = collections.OrderedDict()
+        return items
 
     def __len__(self) -> int:
         return len(self._items)
@@ -127,9 +143,54 @@ class ProgramCache:
         while self._items:
             self._items.popitem(last=False)[1].close()
 
+    def call(self, key, make: Callable[[], "Captured"], *tensors):
+        """The program of `key` called on `tensors`, made by `make()` on
+        first use; a program whose first call raises is not kept."""
+        prog = self.get(key)
+        if prog is not None:
+            return prog(*tensors)
+        prog = make()
+        out = prog(*tensors)
+        self.put(key, prog)
+        return out
 
-_POOLS: Dict[torch.device, tuple] = {}
-_SIDE: Dict[torch.device, torch.cuda.Stream] = {}
+
+_streams = threading.local()
+# One capture at a time in the process (`_capture`).
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _thread_streams(device: torch.device) -> dict:
+    """This thread's graph memory pool, warm-up stream and capture stream on
+    `device`, made on first use.  The pool keeps a one-kernel anchor graph:
+    PyTorch frees a pool with its last graph and refuses its handle after,
+    so without it no program could be captured once every cache was
+    cleared."""
+    per_device = getattr(_streams, "per_device", None)
+    if per_device is None:
+        per_device = _streams.per_device = {}
+    if device not in per_device:
+        st = dict(pool=torch.cuda.graph_pool_handle(), side=torch.cuda.Stream(device),
+                  capture=torch.cuda.Stream(device), anchor=torch.cuda.CUDAGraph())
+        with _capture(st["anchor"], st):
+            torch.zeros(1, device=device)
+        per_device[device] = st
+    return per_device[device]
+
+
+@contextlib.contextmanager
+def _capture(graph: torch.cuda.CUDAGraph, streams: dict) -> Iterator[None]:
+    """`graph` captures what runs inside, on this thread's capture stream
+    and pool (`_thread_streams`), one capture at a time in the process.
+    (`torch.cuda.graph` would also synchronise the device and empty the
+    allocator's caches before each capture, so that every later allocation
+    of the process paid a new cudaMalloc.)"""
+    with _CAPTURE_LOCK, torch.cuda.stream(streams["capture"]):
+        graph.capture_begin(pool=streams["pool"], capture_error_mode="thread_local")
+        try:
+            yield
+        finally:
+            graph.capture_end()
 
 
 def _tensors(tree) -> Iterator[torch.Tensor]:
@@ -144,15 +205,27 @@ def _tensors(tree) -> Iterator[torch.Tensor]:
             yield from _tensors(v)
 
 
+def fresh(tree):
+    """A copy of every tensor of a result (a tensor, or a dict, list or
+    tuple of them), so that the next replay cannot change it."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: fresh(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(fresh(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(fresh(v) for v in tree)
+    return tree
+
+
 def warm_up(device: torch.device, fn: Callable, flag: torch.Tensor):
     """fn() run eagerly on the device's side stream under deferred weight
     checks into `flag`, before its first capture; the caller's stream waits
     for it.  Returns fn()'s result, its tensors marked in use on the
     caller's stream."""
     cur = torch.cuda.current_stream(device)
-    if device not in _SIDE:
-        _SIDE[device] = torch.cuda.Stream(device)
-    side = _SIDE[device]
+    side = _thread_streams(device)["side"]
     side.wait_stream(cur)
     with torch.cuda.stream(side), binning.deferred_weight_checks(flag):
         out = fn()
@@ -163,31 +236,30 @@ def warm_up(device: torch.device, fn: Callable, flag: torch.Tensor):
 
 
 class Graph:
-    """fn() captured in a CUDA graph on `device`'s memory pool, under
-    deferred weight checks into `flag`.
+    """fn() captured in a CUDA graph on this thread's memory pool of
+    `device`, on its capture stream, under deferred weight checks into
+    `flag`.
 
     `out` is the capture's result, static tensors that every replay
     rewrites; `tables` are the kernel-B tables the graph reads, held while
-    it lives.  Every graph of a device shares one pool: replays run in
-    order on the caller's stream and a program copies what it returns
-    right after its last replay, so one graph's temporaries may reuse
-    another's memory.  The launch counts that the capture recorded are
-    taken back, and added at every replay.  The class counts the process's
-    captures and replays."""
+    it lives.  Every graph that a thread captures on a device shares one
+    pool: the thread replays them in order on its current stream and a
+    program copies what it returns right after its last replay, so one
+    graph's temporaries may reuse another's memory.  (A thread replays only
+    its own programs: `ProgramCache` keeps them per thread.)  The launch
+    counts that the capture recorded are taken back, and added at every
+    replay.  The class counts the process's captures and replays."""
 
     captures_total = 0
     replays_total = 0
 
     def __init__(self, device: torch.device, fn: Callable, flag: torch.Tensor):
-        if device not in _POOLS:
-            _POOLS[device] = torch.cuda.graph_pool_handle()
+        streams = _thread_streams(device)
         before = {f: f.launches for f in COUNTED}
         self.graph = torch.cuda.CUDAGraph()
         try:
             with resample.tables_in_use() as self.tables, \
-                    binning.deferred_weight_checks(flag), \
-                    torch.cuda.graph(self.graph, pool=_POOLS[device],
-                                     capture_error_mode="thread_local"):
+                    binning.deferred_weight_checks(flag), _capture(self.graph, streams):
                 self.out = fn()
         finally:
             self.launches = {f: f.launches - n for f, n in before.items()}
@@ -228,3 +300,42 @@ class Staging:
             dst.copy_(src, non_blocking=True)
         self.copied[slot] = torch.cuda.Event()
         self.copied[slot].record()
+
+
+class Captured:
+    """body() captured in one CUDA graph on `device`, over the static
+    tensors `inputs` that it reads (allocated by the caller, outside the
+    graphs' pool, so that no replay's temporaries overwrite them).
+
+    A call copies its tensors into `inputs` on the current stream (device
+    to device, or host to device for CPU tensors), then on first use runs
+    the body eagerly (`warm_up`) and captures it, or replays the graph;
+    it returns fresh copies of the result (`fresh_out=False`: the graph's
+    own output, valid until this thread replays another graph of the
+    device).  A body that cannot be captured raises."""
+
+    def __init__(self, device: torch.device, inputs: List[torch.Tensor], body: Callable):
+        self.device, self.inputs, self.body = device, list(inputs), body
+        self.graph: Optional[Graph] = None
+        self.capture_s = 0.0
+
+    def __call__(self, *tensors: torch.Tensor, fresh_out: bool = True):
+        if len(tensors) != len(self.inputs):
+            raise ValueError(f"{len(tensors)} tensors for {len(self.inputs)} static inputs")
+        for dst, src in zip(self.inputs, tensors):
+            dst.copy_(src, non_blocking=True)
+        if self.graph is None:
+            t0 = time.perf_counter()
+            flag = fault_flag(self.device)
+            out = warm_up(self.device, self.body, flag)
+            self.graph = Graph(self.device, self.body, flag)
+            self.capture_s = time.perf_counter() - t0
+            return out
+        self.graph.replay()
+        return fresh(self.graph.out) if fresh_out else self.graph.out
+
+    def close(self) -> None:
+        """Drop the graph once the card is done with it."""
+        if self.graph is not None:
+            torch.cuda.synchronize(self.device)
+        self.graph = None

@@ -9,18 +9,24 @@ On a CUDA device `evaluate_dsi` runs a *program*, the counterpart of the
 JAX package's `_evaluate_dsi_jit`: the chunk's body (warp and vote) captured
 once in a CUDA graph per `program_key` (the jit's static arguments and the
 input shapes, which `bucket_capacity` keeps few) and replayed for every
-later chunk of that key, one launch from the host.  Inside `eager()` (the
-counterpart of `jax.disable_jit()`), and on the CPU, the same body runs
-eagerly.  The body reads nothing back from the device: the binning's weight
-checks set a per-device fault flag, which `check_faults` reads once a chunk
-(`get_depth_map`, `pipeline._synchronize`).  The capture, the staging, the
-program cache, `eager()` and the fault flags are `graphs`', shared with the
-sharded step's programs (`parallel.sharded`).
+later chunk of that key, one launch from the host.  The chunk's events may
+be host arrays (staged through pinned buffers) or tensors already on the
+card (copied device to device).  `get_depth_map` replays an extraction
+program per `extraction_key` the same way, the counterpart of the jitted
+extraction of `__graft_entry__.entry` and `bench.py`'s `full_chunk`.
+Inside `eager()` (the counterpart of `jax.disable_jit()`), and on the CPU,
+the same bodies run eagerly.  The bodies read nothing back from the device:
+the binning's weight checks set a per-device fault flag, which
+`check_faults` reads once a chunk (`get_depth_map`,
+`pipeline._synchronize`).  The capture, the staging, the program cache,
+`eager()` and the fault flags are `graphs`', shared with the pipelines'
+fusion and temporal programs and the sharded step's (`parallel.sharded`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import NamedTuple, Optional, Tuple
 
@@ -57,7 +63,8 @@ class DsiShape:
 
 
 class Events(NamedTuple):
-    """A chunk of events from one camera (host arrays sorted by time)."""
+    """A chunk of events from one camera, sorted by time: host arrays, or
+    tensors (on the CPU, or already on the card that votes them)."""
 
     x: np.ndarray  # (E,) int
     y: np.ndarray  # (E,) int
@@ -73,9 +80,19 @@ class Events(NamedTuple):
         return Events(self.x[lo:hi], self.y[lo:hi], self.t[lo:hi], p)
 
     def time_window(self, t0: float, t1: float) -> "Events":
-        """Events with t in [t0, t1], by binary search on the host times."""
-        lo = int(np.searchsorted(self.t, t0, side="left"))
-        hi = int(np.searchsorted(self.t, t1, side="right"))
+        """Events with t in [t0, t1], by binary search on the times: on the
+        host for arrays, on the tensors' device for tensors (the two bounds
+        read back once)."""
+        if isinstance(self.t, torch.Tensor):
+            # The bounds in the times' dtype, as numpy compares a float32
+            # array with a Python float.
+            bounds = torch.tensor([t0, t1], dtype=self.t.dtype, device=self.t.device)
+            lo = torch.searchsorted(self.t, bounds[:1], side="left")
+            hi = torch.searchsorted(self.t, bounds[1:], side="right")
+            lo, hi = torch.cat([lo, hi]).tolist()
+        else:
+            lo = int(np.searchsorted(self.t, t0, side="left"))
+            hi = int(np.searchsorted(self.t, t1, side="right"))
         return self.slice(lo, hi)
 
 
@@ -150,6 +167,36 @@ def _stage(events: Events, x: np.ndarray, y: np.ndarray, t: np.ndarray,
         _stage_weights(w, n)
 
 
+def _on_device(events: Events, device: torch.device) -> bool:
+    """Whether the chunk's x, y, t are tensors on `device` (staged there,
+    device to device); False for host arrays and CPU tensors (staged through
+    the host).  Tensors on any other device raise."""
+    fields = (events.x, events.y, events.t)
+    devices = {f.device for f in fields if isinstance(f, torch.Tensor)}
+    tensors = all(isinstance(f, torch.Tensor) for f in fields)
+    if devices <= {torch.device("cpu")} and not (tensors and device.type == "cpu"):
+        return False
+    if devices != {device} or not tensors:
+        raise ValueError(f"events on {sorted(map(str, devices))}: they must be host arrays, "
+                         f"CPU tensors or tensors on the trajectory's device {device}")
+    return True
+
+
+def _stage_device(events: Events, x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
+                  w: Optional[torch.Tensor]) -> None:
+    """`_stage` of a chunk whose tensors lie on the buffers' device, on the
+    current stream: device-to-device copies and fills, no host round trip."""
+    n = events.num
+    for buf, src in ((x, events.x), (y, events.y), (t, events.t)):
+        buf[:n].copy_(src, non_blocking=True)
+    x[n:].zero_()
+    y[n:].zero_()
+    t[n:].copy_(t[n - 1:n].expand(t.shape[0] - n))
+    if w is not None:
+        w[:n].fill_(1.0)
+        w[n:].zero_()
+
+
 class _Body(NamedTuple):
     """The body's static arguments (the JAX jit's static_argnames)."""
 
@@ -214,9 +261,17 @@ def _vote(body: _Body, c: _Constants, x, y, t, w, traj: trajmod.Trajectory,
 
 
 def _host_events(events: Events, packet_size: int, pad: str, device):
-    """The chunk as device tensors (x, y, t, w or None), from pageable host
-    buffers: the eager path's staging."""
+    """The chunk as tensors on `device` (x, y, t, w or None): the eager
+    path's staging, from pageable host buffers, or on the device where the
+    chunk's tensors already lie there."""
     n = _n_static(events.num, packet_size, pad)
+    if _on_device(events, device):
+        i32, f32 = dict(dtype=torch.int32, device=device), dict(dtype=torch.float32,
+                                                                 device=device)
+        bufs = (torch.empty(n, **i32), torch.empty(n, **i32), torch.empty(n, **f32),
+                torch.empty(n, **f32) if pad == "bucket" else None)
+        _stage_device(events, *bufs)
+        return bufs
     bufs = (np.empty(n, np.int32), np.empty(n, np.int32), np.empty(n, np.float32),
             np.empty(n, np.float32) if pad == "bucket" else None)
     _stage(events, *bufs)
@@ -301,8 +356,12 @@ class Program:
 
     def _load(self, events: Events, traj: trajmod.Trajectory, T_rv_w: SE3) -> None:
         """Stage the call's inputs into the static buffers on the current
-        stream: events through the pinned buffers not in flight."""
-        self.staging.load(lambda host: _stage(events, *host, *([None] * (4 - len(host)))))
+        stream: host events through the pinned buffers not in flight, events
+        already on the card by device-to-device copies."""
+        if _on_device(events, self.device):
+            _stage_device(events, *self.events, *([None] * (4 - len(self.events))))
+        else:
+            self.staging.load(lambda host: _stage(events, *host, *([None] * (4 - len(host)))))
         for dst, src in zip(self.poses, (traj.ts, traj.poses.q, traj.poses.t)):
             dst.copy_(src)
         self.T_rv_w[0].copy_(T_rv_w.q.reshape(4))
@@ -353,6 +412,9 @@ def evaluate_dsi(
 ) -> Optional[torch.Tensor]:
     """Back-project a chunk of events into a fresh (Z, H, W) float32 DSI on
     the trajectory's device; None when the chunk is at most one packet.
+    The events may be host arrays, CPU tensors or tensors on the
+    trajectory's device (staged there with no host round trip); tensors on
+    another device raise.
 
     `rectify` = "device" recomputes rectification per event; "lut" gathers
     the host LUT.  `pad` = "bucket" pads the events with zero-weight events
@@ -387,12 +449,57 @@ def evaluate_dsi(
     return dsi
 
 
+# ---------------------------------------------------------------------------
+# Extraction programs: get_depth_map's body captured per key
+# ---------------------------------------------------------------------------
+
+# Extraction programs kept (all devices): a run's DSI shape under its
+# options, and the focus collapses, the 300-plane chunk and the smaller
+# rigs that one process (chip_smoke.py) extracts beside it.  Each holds a
+# static DSI (123 MB at 640x480x100) and its maps.
+EXTRACTION_CACHE_SIZE = 8
+
+_EXTRACTIONS = ProgramCache(EXTRACTION_CACHE_SIZE)
+
+
+def extraction_key(dsi: torch.Tensor, depth_vec: DepthVector,
+                   options: extract.DepthMapOptions) -> tuple:
+    """The key of the program that extracts a depth map from `dsi`: its
+    device, shape and dtype, the options and the depth planes (the static
+    arguments of the JAX package's jitted extraction)."""
+    return (dsi.device, tuple(dsi.shape), dsi.dtype, options, depth_vec)
+
+
+def extraction_programs() -> list:
+    """The extraction programs held, least recently used first."""
+    return _EXTRACTIONS.values()
+
+
+def clear_programs() -> None:
+    """Close every chunk and extraction program held (their graphs and
+    buffers)."""
+    _PROGRAMS.clear()
+    _EXTRACTIONS.clear()
+
+
 def get_depth_map(mapper: Mapper, dsi: torch.Tensor,
                   options: extract.DepthMapOptions) -> extract.DepthMapResult:
-    """getDepthMapFromDSI on this mapper's depth planes.  Raises, once the
-    extraction is queued, if a chunk voted since the last check had refused
-    weights (`check_faults`)."""
-    res = extract.get_depth_map_from_dsi(dsi, mapper.depth_vec, options)
+    """getDepthMapFromDSI on this mapper's depth planes
+    (`extract.extraction_body`).  On a CUDA device outside `eager()` it
+    replays the program of `extraction_key` (captured on first use; the DSI
+    is copied into its static input, the maps come back fresh); elsewhere
+    the body runs eagerly.  Raises, once the extraction is queued, if a
+    chunk voted since the last check had refused weights (`check_faults`)."""
+    if graphs.use_programs(dsi.device):
+        def make():
+            static = torch.empty_like(dsi)
+            return graphs.Captured(dsi.device, [static], functools.partial(
+                extract.extraction_body, static, mapper.depth_vec, options))
+
+        maps = _EXTRACTIONS.call(extraction_key(dsi, mapper.depth_vec, options), make, dsi)
+        res = extract.DepthMapResult(depth_dense=None, **maps)
+    else:
+        res = extract.get_depth_map_from_dsi(dsi, mapper.depth_vec, options)
     check_faults()
     return res
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +41,10 @@ class DepthMapResult(NamedTuple):
     mask: torch.Tensor         # (H, W) uint8 semi-dense support
     depth_dense: Optional[torch.Tensor]  # inpainted dense depth (None here)
     depth_indices: torch.Tensor  # (H, W) int32 filtered depth cell indices
+
+
+# The device maps of a DepthMapResult, as the extraction body returns them.
+MAP_NAMES = ("depth", "confidence", "mask", "depth_indices")
 
 
 def normalize_confidence(confidence: torch.Tensor,
@@ -179,11 +183,28 @@ def extract_from_collapsed(confidence: torch.Tensor, depth_indices: torch.Tensor
                           depth_dense=None, depth_indices=filtered_idx)
 
 
+def depth_maps(confidence: torch.Tensor, depth_indices: torch.Tensor,
+               depth_vec: DepthVector, options: DepthMapOptions) -> Dict[str, torch.Tensor]:
+    """`extract_from_collapsed`'s four maps by name ("depth", "confidence",
+    "mask", "depth_indices"): the extraction body that `mapper.get_depth_map`'s
+    programs and the sharded step (`parallel.sharded`) both capture.  It
+    reads nothing from the device and copies nothing from the host."""
+    res = extract_from_collapsed(confidence, depth_indices, depth_vec, options)
+    return {name: getattr(res, name) for name in MAP_NAMES}
+
+
+def extraction_body(dsi: torch.Tensor, depth_vec: DepthVector,
+                    options: DepthMapOptions) -> Dict[str, torch.Tensor]:
+    """Collapse a (Z, H, W) DSI by `options.collapse_method`, then
+    `depth_maps`."""
+    confidence, depth_indices = gridops.collapse(dsi, options.collapse_method)
+    return depth_maps(confidence, depth_indices, depth_vec, options)
+
+
 def get_depth_map_from_dsi(dsi: torch.Tensor, depth_vec: DepthVector,
                            options: DepthMapOptions) -> DepthMapResult:
     """Collapse a (Z, H, W) DSI and run the extraction chain."""
-    confidence, depth_indices = gridops.collapse(dsi, options.collapse_method)
-    return extract_from_collapsed(confidence, depth_indices, depth_vec, options)
+    return DepthMapResult(depth_dense=None, **extraction_body(dsi, depth_vec, options))
 
 
 def densify_host(result: DepthMapResult, depth_vec: DepthVector) -> np.ndarray:

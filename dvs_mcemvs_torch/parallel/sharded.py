@@ -378,9 +378,8 @@ def _ops(spec: ShardedRigSpec, cfg: ShardedStepConfig, kind: str,
         best = torch.argmax(confs, dim=0)[None]
         conf = torch.take_along_dim(confs, best, dim=0)[0]
         idx = torch.take_along_dim(idxs, best, dim=0)[0]
-        res = extract.extract_from_collapsed(conf, idx, spec.depth_vec, cfg.extract_options)
-        s["out"] = {"dsi": s["fused"], "depth": res.depth, "confidence": res.confidence,
-                    "mask": res.mask, "depth_indices": res.depth_indices}
+        s["out"] = {"dsi": s["fused"],
+                    **extract.depth_maps(conf, idx, spec.depth_vec, cfg.extract_options)}
 
     ops.append(_Op("fuse+collapse", fuse_collapse))
     if n_plane > 1:
@@ -516,10 +515,7 @@ class StepProgram:
                 next(replays).replay()
             else:
                 seg.run(self.state, mesh)
-        out = self.state["out"]
-        if isinstance(out, dict):
-            return {k: v.clone() for k, v in out.items()}
-        return out.clone()
+        return graphs.fresh(self.state["out"])
 
     def close(self) -> None:
         """Drop the graphs and their buffers once the card is done with them."""

@@ -12,11 +12,21 @@ work, over (Z, H, W) float32 DSIs on the trajectories' device.
 
 The temporal pipelines take an `evaluate_pair` hook, through which the CLI
 votes each sub-interval on the sharded mesh step (`parallel.sharded`).
+
+On a CUDA device outside `mapper.eager()` the device work between the
+votes runs as programs (`graphs.Captured`, one CUDA graph each), the
+counterparts of the fusion and temporal steps that `bench.py`'s
+`full_chunk` and `alg2_chunk` jit: process_1's fusion (`fuse_dsis`, a
+program per `fusion_key`), process_2/5's per-sub-interval fusion and
+accumulation, finalisation and converse fusion (`TemporalProgram`, per
+`temporal_key`), and the reference view's pose (`place_reference_view`).
+On the CPU, and inside `eager()`, the same bodies run eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import time
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
@@ -24,7 +34,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import mapper as mappermod
+from . import graphs, mapper as mappermod
 from .mapper import Events, Mapper
 from .ops import grid as gridops, se3, trajectory as trajmod, voting
 from .ops.se3 import SE3
@@ -67,18 +77,49 @@ class ProcessResult:
     extracted: Optional[object] = None
 
 
+def _placement(traj0: trajmod.Trajectory, ts, shift: SE3) -> SE3:
+    """T_rv_w of the left camera's pose at `ts` (a float, or a 0-d tensor
+    of ts's dtype on its device) composed with `shift`.  The query is a
+    batch of one: indexing by a 0-d index tensor reads it on the host, which
+    a capture refuses."""
+    t = torch.as_tensor(ts, dtype=traj0.ts.dtype, device=traj0.device).reshape(1)
+    T_w_l, _ = trajmod.pose_at(traj0, t)
+    T = se3.inverse(se3.compose(T_w_l, shift))
+    return SE3(T.q[0], T.t[0])
+
+
+# Reference-view programs kept (all devices): a run's left trajectory under
+# its rv_pos.  Each holds a scalar input and its pose.
+PLACEMENT_CACHE_SIZE = 4
+_PLACEMENTS = graphs.ProgramCache(PLACEMENT_CACHE_SIZE)
+
+
 def place_reference_view(traj0: trajmod.Trajectory, ts: float,
                          rv_pos: float = 0.0) -> SE3:
     """RV at the left camera pose at `ts`, optionally shifted along the
     stereo baseline by `rv_pos` metres.  Returns T_rv_w.  Raises where
-    `pose_at` calls `ts` invalid, decided on the host (`valid_at`)."""
+    `pose_at` calls `ts` invalid, decided on the host (`valid_at`).  On a
+    CUDA device outside `mapper.eager()` the pose interpolation replays a
+    program per trajectory and `rv_pos` (`ts` copied into its scalar
+    input), so that it queues one graph launch instead of ~200 kernels."""
     if not trajmod.valid_at(traj0, ts):
         raise ValueError(f"reference-view time {ts} outside trajectory")
-    T_w_l, _ = trajmod.pose_at(traj0, ts)
     dev = traj0.device
-    shift = SE3(torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev),
-                torch.tensor([rv_pos, 0.0, 0.0], device=dev))
-    return se3.inverse(se3.compose(T_w_l, shift))
+    if not graphs.use_programs(dev):
+        shift = SE3(torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev),
+                    torch.tensor([rv_pos, 0.0, 0.0], device=dev))
+        return _placement(traj0, ts, shift)
+    def make():
+        static = torch.empty((), dtype=traj0.ts.dtype, device=dev)
+        shift = SE3(torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev),
+                    torch.tensor([rv_pos, 0.0, 0.0], device=dev))
+        return graphs.Captured(dev, [static], functools.partial(_placement, traj0, static,
+                                                                shift))
+
+    # The key holds the trajectory's tensors by id; the program's body holds
+    # the trajectory, so no other tensor takes those ids while it lives.
+    key = (dev, id(traj0.ts), id(traj0.poses.q), id(traj0.poses.t), traj0.n, rv_pos)
+    return _PLACEMENTS.call(key, make, torch.tensor(ts, dtype=traj0.ts.dtype))
 
 
 def _evaluate_all(
@@ -117,6 +158,41 @@ def _synchronize(t: torch.Tensor) -> None:
     mappermod.check_faults()
 
 
+# Fusion programs kept (all devices): a rig's camera count and DSI shape
+# under its fusion method; each holds its cameras' static DSIs and the fused
+# one (3 x 123 MB at 640x480x100 for two cameras).
+FUSION_CACHE_SIZE = 4
+_FUSIONS = graphs.ProgramCache(FUSION_CACHE_SIZE)
+
+
+def fusion_key(grids: Sequence[torch.Tensor], method: int) -> tuple:
+    """The key of the program that fuses `grids`: device, camera count,
+    shape, dtype and method."""
+    g = grids[0]
+    return (g.device, len(grids), tuple(g.shape), g.dtype, method)
+
+
+def fusion_programs() -> list:
+    """The fusion programs held, least recently used first."""
+    return _FUSIONS.values()
+
+
+def fuse_dsis(grids: Sequence[torch.Tensor], method: int) -> torch.Tensor:
+    """`gridops.fuse_many(grids, method)` as a fresh DSI: on a CUDA device
+    outside `mapper.eager()` the program of `fusion_key` (the grids copied
+    into its static inputs on the card), else eagerly.  One grid is
+    returned as it is."""
+    grids = list(grids)
+    if len(grids) == 1 or not graphs.use_programs(grids[0].device):
+        return gridops.fuse_many(grids, method)
+    def make():
+        static = [torch.empty_like(g) for g in grids]
+        return graphs.Captured(grids[0].device, static,
+                               functools.partial(gridops.fuse_many, static, method))
+
+    return _FUSIONS.call(fusion_key(grids, method), make, *grids)
+
+
 def process_1(
     mappers: Sequence[Mapper],
     events: Sequence[Events],
@@ -132,7 +208,7 @@ def process_1(
     live = [d for d in dsis if d is not None]
     if not live:
         raise ValueError("no camera produced a DSI (all chunks too small)")
-    fused = gridops.fuse_many(live, stereo_fusion)
+    fused = fuse_dsis(live, stereo_fusion)
     res = ProcessResult(
         fused_dsi=fused, T_rv_w=T_rv_w, ts=ts,
         timings={"dsi_voting_s": dt},
@@ -183,22 +259,130 @@ class TemporalResult(ProcessResult):
     ('camera_time': time per camera, then across cameras)."""
 
 
-def _temporal_accumulate(acc, dsi, method: int):
-    """Add one sub-interval's DSI into the running accumulator, in place.
-    `acc` None starts it from this DSI's term alone: the JAX package adds
+def _temporal_accumulate(acc, dsi, method: int, first: bool) -> None:
+    """Add one sub-interval's DSI into the running accumulator `acc`, in
+    place.  `first` sets it to this DSI's term alone: the JAX package adds
     that term to zeros, and 0 + x == x, so the sums keep its bits without a
     zero plane per sub-interval."""
     if method == TEMPORAL_HM:
-        return gridops.inverse(dsi) if acc is None else gridops.add_inverse_(acc, dsi)
-    if method == TEMPORAL_AM:
-        return dsi.clone() if acc is None else gridops.fuse_add_(acc, dsi)
-    raise ValueError(f"temporal_fusion must be {TEMPORAL_HM} (HM) or {TEMPORAL_AM} (AM)")
+        term = gridops.inverse(dsi)
+    elif method == TEMPORAL_AM:
+        term = dsi
+    else:
+        raise ValueError(f"temporal_fusion must be {TEMPORAL_HM} (HM) or {TEMPORAL_AM} (AM)")
+    if first:
+        acc.copy_(term)
+    else:
+        acc.add_(term)
 
 
 def _temporal_finalize(acc, n: int, method: int):
     if method == TEMPORAL_HM:
         return gridops.hm_from_sum_of_inv(acc, n)
     return gridops.am_from_sum(acc, n)
+
+
+def temporal_step(acc: Sequence[torch.Tensor], d0: torch.Tensor, d1: torch.Tensor,
+                  stereo_fusion: int, temporal_fusion: int, first: bool) -> torch.Tensor:
+    """One sub-interval's device work (`bench.py:150-154`): the pair's fused
+    DSI, and its term, d0's and d1's added into the accumulators `acc`
+    (fused, left, right), in place.  Returns the fused DSI."""
+    fused_k = gridops.fuse_pair(d0, d1, stereo_fusion)
+    for a, dsi in zip(acc, (fused_k, d0, d1)):
+        _temporal_accumulate(a, dsi, temporal_fusion, first)
+    return fused_k
+
+
+def temporal_final(acc: Sequence[torch.Tensor], n: int, stereo_fusion: int,
+                   temporal_fusion: int) -> Dict[str, torch.Tensor]:
+    """The accumulators (fused, left, right) normalised by the `n`
+    sub-intervals that voted, and the converse order's fusion of left and
+    right: {"fused", "left", "right", "camera_time"}."""
+    fused, left, right = (_temporal_finalize(a, n, temporal_fusion) for a in acc)
+    return {"fused": fused, "left": left, "right": right,
+            "camera_time": gridops.fuse_pair(left, right, stereo_fusion)}
+
+
+# Temporal programs kept (all devices): a DSI shape under its fusion and
+# temporal methods.  Each holds 2 static inputs and 3 accumulators (5 x 123
+# MB at 640x480x100) and its graphs' outputs.
+TEMPORAL_CACHE_SIZE = 4
+_TEMPORAL = graphs.ProgramCache(TEMPORAL_CACHE_SIZE)
+
+
+def temporal_key(like: torch.Tensor, stereo_fusion: int, temporal_fusion: int) -> tuple:
+    """The key of the temporal program for sub-interval DSIs like `like`:
+    device, shape, dtype and the two methods."""
+    return (like.device, tuple(like.shape), like.dtype, stereo_fusion, temporal_fusion)
+
+
+def temporal_programs() -> list:
+    """The temporal programs held, least recently used first."""
+    return _TEMPORAL.values()
+
+
+class TemporalProgram:
+    """process_time_fusion's device work for one `temporal_key`: the
+    accumulators (fused, left, right) and, on programs, `temporal_step`
+    captured as two graphs (the first sub-interval's, which sets the
+    accumulators, and the later ones', which add) over two static inputs,
+    and `temporal_final` as a graph per sub-interval count.  With
+    `captured` False (the CPU, `mapper.eager()`) the same bodies run
+    eagerly on the caller's DSIs.  One pipeline call uses it at a time."""
+
+    def __init__(self, like: torch.Tensor, stereo_fusion: int, temporal_fusion: int,
+                 captured: bool):
+        self.methods = (stereo_fusion, temporal_fusion)
+        self.acc = [torch.empty_like(like) for _ in range(3)]
+        self.captured = captured
+        if captured:
+            self.inputs = [torch.empty_like(like) for _ in range(2)]
+            self.steps = {first: graphs.Captured(like.device, self.inputs, functools.partial(
+                temporal_step, self.acc, *self.inputs, *self.methods, first))
+                for first in (True, False)}
+            self.finals: Dict[int, graphs.Captured] = {}
+
+    def step(self, d0: torch.Tensor, d1: torch.Tensor, first: bool,
+             fresh: bool) -> torch.Tensor:
+        """Fuse and accumulate a sub-interval; the fused DSI, a fresh tensor
+        when `fresh` (else valid until the next replay)."""
+        if not self.captured:
+            return temporal_step(self.acc, d0, d1, *self.methods, first)
+        return self.steps[first](d0, d1, fresh_out=fresh)
+
+    def final(self, n: int) -> Dict[str, torch.Tensor]:
+        """`temporal_final` over `n` sub-intervals, as fresh tensors."""
+        if not self.captured:
+            return temporal_final(self.acc, n, *self.methods)
+        if n not in self.finals:
+            self.finals[n] = graphs.Captured(self.acc[0].device, [], functools.partial(
+                temporal_final, self.acc, n, *self.methods))
+        return self.finals[n]()
+
+    def close(self) -> None:
+        if self.captured:
+            for prog in (*self.steps.values(), *self.finals.values()):
+                prog.close()
+
+
+def clear_programs() -> None:
+    """Close every reference-view, fusion and temporal program held."""
+    for cache in (_PLACEMENTS, _FUSIONS, _TEMPORAL):
+        cache.clear()
+
+
+def _temporal_program(like: torch.Tensor, stereo_fusion: int,
+                      temporal_fusion: int) -> TemporalProgram:
+    """The temporal program of `temporal_key` (made on first use and kept)
+    on programs; a fresh eager one elsewhere."""
+    if not graphs.use_programs(like.device):
+        return TemporalProgram(like, stereo_fusion, temporal_fusion, captured=False)
+    key = temporal_key(like, stereo_fusion, temporal_fusion)
+    prog = _TEMPORAL.get(key)
+    if prog is None:
+        prog = TemporalProgram(like, stereo_fusion, temporal_fusion, captured=True)
+        _TEMPORAL.put(key, prog)
+    return prog
 
 
 def process_time_fusion(
@@ -239,7 +423,7 @@ def process_time_fusion(
     else:
         subs1 = split_subintervals(events[1], num_intervals)
 
-    acc_fused = acc_left = acc_right = None
+    temporal = None
     total_ev = 0
     n_live = 0
     t_start = time.perf_counter()
@@ -257,22 +441,21 @@ def process_time_fusion(
         if d0 is None or d1 is None:
             log.warning("sub-interval %d too small, skipped", k)
             continue
+        if temporal is None:
+            temporal = _temporal_program(d0, stereo_fusion, temporal_fusion)
+        fused_k = temporal.step(d0, d1, first=n_live == 0,
+                                fresh=on_subinterval is not None)
         n_live += 1
-        fused_k = gridops.fuse_pair(d0, d1, stereo_fusion)
         if on_subinterval is not None:
             on_subinterval(k, {"camera0": d0, "camera1": d1, "fused": fused_k})
-        acc_fused = _temporal_accumulate(acc_fused, fused_k, temporal_fusion)
-        acc_left = _temporal_accumulate(acc_left, d0, temporal_fusion)
-        acc_right = _temporal_accumulate(acc_right, d1, temporal_fusion)
         # Free this sub-interval's planes before the next one votes.
         d0 = d1 = fused_k = None
 
-    if acc_fused is None:
+    if temporal is None:
         raise ValueError("no sub-interval produced a DSI")
-    fused = _temporal_finalize(acc_fused, n_live, temporal_fusion)
-    left = _temporal_finalize(acc_left, n_live, temporal_fusion)
-    right = _temporal_finalize(acc_right, n_live, temporal_fusion)
-    camera_time = gridops.fuse_pair(left, right, stereo_fusion)
+    out = temporal.final(n_live)
+    fused, left, right = out["fused"], out["left"], out["right"]
+    camera_time = out["camera_time"]
     if vopts.sync:
         _synchronize(fused)
     dt_all = time.perf_counter() - t_start

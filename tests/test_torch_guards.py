@@ -49,7 +49,8 @@ def _clean_env():
 # user scripts.
 PORT_SCRIPTS = ["probe_gpu", "synthetic_demo_torch", "evaluate_dsec_torch",
                 "convert_poses_torch", "golden_device_probe_torch",
-                "bf_divergence_probe_torch"]
+                "bf_divergence_probe_torch", "roofline_torch", "profile_torch_chunk",
+                "time_chunk_torch"]
 
 
 def test_port_never_imports_jax():

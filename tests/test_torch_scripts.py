@@ -212,3 +212,24 @@ def test_bf_probe_on_the_cpu(tmp_path):
     assert str(d["device"]) == "cpu" and d["bf"].shape == d["flat"].shape == (50, 240, 320)
     rc, lines = _main(mod, ["--compare", npz, npz])
     assert rc == 0 and lines[0].startswith("bf   : cpu-vs-cpu rel-L1 0.000e+00")
+
+
+@pytest.mark.parametrize("argv", [
+    ["scripts/roofline_torch.py"],
+    ["scripts/profile_torch_chunk.py", "--stages", "vote,extract"],
+    ["scripts/time_chunk_torch.py", "--runs", "2"],
+], ids=["roofline", "stage_profiler", "chunk_timer"])
+def test_card_scripts_refuse_without_a_card(argv):
+    """The roofline, the stage profiler and the chunk timer measure the
+    card: with no card they exit nonzero with an error that names the missing CUDA device,
+    and print no report."""
+    code = ("import runpy, sys, torch\n"
+            "torch.cuda.is_available = lambda: False\n"
+            f"sys.argv = {argv!r}\n"
+            f"runpy.run_path({argv[0]!r}, run_name='__main__')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "a CUDA device is required" in proc.stderr
+    assert "stages" not in proc.stdout and "kernels" not in proc.stdout

@@ -106,6 +106,20 @@ Phases (each raises on failure, so the script exits non-zero):
                 in turns, one profiled chunk of each
                 (scripts/profile_torch_chunk.py), capture seconds per
                 program and the output copy's time.
+ 13. whole-chunk programs -- process_1 + get_depth_map, the extraction
+                under every collapse, process_2's temporal step and events
+                on the card, each on programs against `mapper.eager()`; the
+                roofline and the stage profiler.
+ 14. bench   -- bench_torch.py in this process: each step's program (the
+                voting step, the full chunk, alg2) equal to its body under
+                `mapper.eager()` with kernels A and B launched in its
+                replay; its stages as its main runs them (the timed region
+                0.3 s, 22 sustained chunks, phase 13's roofline), its JSON
+                line printed, no stage failed, kernels A and B launched in
+                every stage, 20 chunks timed of 2 Mi events from the store,
+                their PNGs, the golden gate passed on the literal spec; the
+                sustained chunks' downlinked bytes equal to the same loop's
+                inside `mapper.eager()`.
 Phases 4-11 run the chunk on its programs, as a user's call does, and
 phase 10 the sharded steps on theirs.
 Each phase logs its seconds; the line before the two result lines gives
@@ -1032,8 +1046,13 @@ def block_step_cases(tile) -> float:
 
 def build_workload(dev, n_events=N_EVENTS, width=WIDTH, height=HEIGHT, dim_z=DIM_Z,
                    n_pts=40_000):
-    """The headline workload as bench.py:build_workload builds it (both
-    cameras of the synthetic rig, each stream tiled to `n_events`)."""
+    """The headline workload: bench.py:build_workload's rig, mapper, scene
+    and trajectory, with two differences.  Each camera votes its own
+    simulated stream, tiled to `n_events` (bench.py simulates camera 0's
+    alone and both of its cameras vote it), and camera 1's trajectory is
+    camera 0's composed on the right with the rig's baseline
+    (`trajectory.apply_right`; bench.py adds [0.6, 0, 0] to the
+    translations).  bench_torch.py:build_workload is bench.py's."""
     from dvs_mcemvs_torch.mapper import DsiShape, Events, make_mapper
     from dvs_mcemvs_torch.ops import se3, trajectory as trajmod
     from dvs_mcemvs_torch.ops.camera import PinholeCamera
@@ -1163,12 +1182,7 @@ def golden_phase(dev, cfg_name="BENCH16", specs=(HEADLINE_SPEC, I8_SPEC, FLAT_SP
         vopts = pipeline.VotingOptions(packet_size=PACKET, backend=spec, pad_policy="bucket")
         res = pipeline.process_1(mappers, events, trajs, ts_rv, stereo_fusion=2, vopts=vopts)
         dm = mappermod.get_depth_map(mappers[0], res.fused_dsi, extract.DepthMapOptions())
-        out = dict(spec=spec, **golden.score(dm, res, scene, budget["confident_quantile"]))
-        out["pass"] = bool(out["within1"] >= budget["frac_within_1_plane"]
-                           and out["within2"] >= budget["frac_within_2_planes"]
-                           and out["median_planes"] <= budget["median_err_planes"]
-                           and out["gt_median_rel_err"] < budget["gt_median_rel_err"]
-                           and max(out["cam_mass_rel"]) < budget["per_camera_mass_rel"])
+        out = dict(spec=spec, **golden.gate(dm, res, scene, budget))
         log(f"  golden {cfg_name}{'' if i == 0 else ' (scored, not gated)'}: {json.dumps(out)}; "
             f"programs {program_summary()['programs']}")
         if i == 0 and not out["pass"]:
@@ -3062,6 +3076,110 @@ def whole_chunk_phase(dev, workload, kernels: dict, timing: dict, specs=WHOLE_SP
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: bench_torch.py, the port's benchmark
+# ---------------------------------------------------------------------------
+
+# bench_torch.time_step's seconds a timed region here (its own default is
+# 1.2), and the sustained loop's chunks (its default; 2 not timed).
+BENCH_MIN_TIME = 0.3
+BENCH_CHUNKS = 22
+BENCH_STEPS = ("make_step", "make_full_chunk_step", "make_alg2_step")
+BENCH_STAGES = ("voting", "alternatives", "full_chunk", "alg2", "full_seq_sustained", "golden")
+
+
+def bench_module():
+    """bench_torch.py, beside this script."""
+    sys.path.insert(0, HERE)
+    import bench_torch
+
+    return bench_torch
+
+
+def bench_step_vs_eager(dev, bt, workload, maker, spec, needed=KERNELS_A_B) -> dict:
+    """bench_torch's step `maker` under `spec` inside `mapper.eager()`, then
+    on its program (the first call captures it, the second replays): the
+    replay's output equal to eager's to the bit, and the replay launching
+    kernels A and B (counts from zero).  Returns the replay's launches."""
+    from dvs_mcemvs_torch import mapper as mappermod
+
+    mapper, ev, traj, T_rv_w = workload
+    args = bt.device_args(*ev, dev)
+    step = getattr(bt, maker)(mapper, traj, T_rv_w, spec, bt.PLANE_BLOCK)
+    try:
+        with mappermod.eager():
+            want = step(*args)
+        step(*args)
+        zero_counts()
+        got = step(*args)
+        _sync(dev)
+        counts = read_counts()
+    finally:
+        step.close()
+    launches = {n: counts[n] for n in needed}
+    compare_exact(f"bench {maker} ({spec}), program vs eager", got, want)
+    log(f"  bench {maker}: a replay's launches {launches}")
+    _check_launched(f"bench {maker}", launches, needed)
+    return launches
+
+
+def bench_phase(dev, roofline=None, min_time=BENCH_MIN_TIME, n_chunks=BENCH_CHUNKS,
+                needed=KERNELS_A_B) -> dict:
+    """bench_torch.py in this process: (a) each step's program against
+    `mapper.eager()` (`bench_step_vs_eager`); (b) `bench_torch.run`, the
+    stages of its main (`roofline`: phase 13's report, not taken again),
+    its JSON line printed on a line of its own: no stage failed, kernels A
+    and B launched in every stage, the sustained loop's chunks, events,
+    store ingest and PNGs, the golden gate passed on the literal spec;
+    (c) the sustained loop again inside `mapper.eager()`: every chunk's
+    downlinked bytes equal to the programs' run.  Returns the line."""
+    from dvs_mcemvs_torch import mapper as mappermod, pipeline
+
+    mappermod.clear_programs()
+    pipeline.clear_programs()
+    bt = bench_module()
+    spec = bt.headline_spec()
+    if spec != HEADLINE_SPEC:
+        raise AssertionError(f"bench_torch's spec {spec} is not the headline {HEADLINE_SPEC}")
+    workload = bt.build_workload(dev)
+    for maker in BENCH_STEPS:
+        bench_step_vs_eager(dev, bt, workload, maker, spec, needed)
+    del workload
+
+    got = {}
+    line, failed = bt.run(dev, min_time=min_time, n_chunks=n_chunks, roofline=roofline,
+                          buffers=got)
+    print(json.dumps(line), flush=True)
+    if failed:
+        raise AssertionError(f"bench_torch stages failed: {failed}")
+    detail = line["detail"]
+    for stage in BENCH_STAGES:
+        _check_launched(f"bench stage {stage}", detail["launches"][stage], needed)
+    sus = detail["full_seq_sustained"]
+    expected = dict(chunks_timed=n_chunks - 2, events_per_chunk=2 * bt.N_EVENTS,
+                    store_ingest=True, device_resident_events=True,
+                    artifact_files=2 * n_chunks)
+    found = {k: sus[k] for k in expected}
+    log(f"  bench sustained: {found}; {sus['seconds_per_chunk']:.6f} s a chunk, a save "
+        f"{sus['save_s_per_chunk']:.6f} s in a worker, final drain {sus['final_drain_s']:.6f} s")
+    if found != expected:
+        raise AssertionError(f"bench sustained: {found}, not {expected}")
+    if not (detail["golden"]["pass"] and detail["golden"]["spec"] == HEADLINE_SPEC):
+        raise AssertionError(f"bench golden gate: {detail['golden']}")
+
+    want = {}
+    with mappermod.eager():
+        bt.full_seq_sustained(spec, bt.PLANE_BLOCK, n_chunks=n_chunks, device=dev,
+                              buffers=want)
+    if sorted(got) != sorted(want) or len(got) != n_chunks:
+        raise AssertionError(f"bench sustained chunks: {sorted(got)}, eager {sorted(want)}")
+    chunks = sorted(want)
+    compare_exact(f"bench sustained: {n_chunks} chunks' downlinked bytes, program vs eager",
+                  torch.from_numpy(np.stack([got[k] for k in chunks])),
+                  torch.from_numpy(np.stack([want[k] for k in chunks])))
+    return line
+
+
 def optional_modules() -> str:
     """Which of the optional host packages import here."""
     import importlib
@@ -3096,7 +3214,7 @@ def main() -> int:
             log(f"  phase {len(marks)} in {marks[-1]:.1f} s")
         if title:
             marks.append(now)
-            log(f"[{len(marks)}/13] {title}")
+            log(f"[{len(marks)}/14] {title}")
 
     dev = require_cuda()
     smi = nvidia_smi_line()
@@ -3181,7 +3299,11 @@ def main() -> int:
 
     phase(f"whole-chunk programs: the reference view, fusion and extraction, process_2's "
           f"temporal step, events on the card, the roofline and the stage profiler; {smi}")
-    whole_chunk_phase(dev, workload, results, programs["timing"])
+    whole = whole_chunk_phase(dev, workload, results, programs["timing"])
+
+    phase(f"bench: bench_torch.py's steps against mapper.eager(), its stages and its line; "
+          f"{smi}")
+    bench_phase(dev, whole["roofline"])
     phase()
 
     binning_src = "dvs_mcemvs_torch/csrc/binning.cu"

@@ -330,6 +330,20 @@ def score(dm, res, scene: GoldenScene, confident_quantile: float) -> dict:
                                  / float(g["cam_mass"][c]) - 1) for c in range(2)]}
 
 
+def gate(dm, res, scene: GoldenScene, budget: dict) -> dict:
+    """`score` of `dm` and `res` with `budget`'s confident quantile, and its
+    verdict `pass`: within one and within two planes at least the budget's
+    shares, the median plane error and the median metric error within its
+    limits, and each camera's vote mass within its relative limit."""
+    out = score(dm, res, scene, budget["confident_quantile"])
+    out["pass"] = bool(out["within1"] >= budget["frac_within_1_plane"]
+                       and out["within2"] >= budget["frac_within_2_planes"]
+                       and out["median_planes"] <= budget["median_err_planes"]
+                       and out["gt_median_rel_err"] < budget["gt_median_rel_err"]
+                       and max(out["cam_mass_rel"]) < budget["per_camera_mass_rel"])
+    return out
+
+
 def production_backend_spec(events, packet_size: int,
                             cfg: GoldenConfig = FULL) -> str:
     """The spec the CLI's auto path selects for this fixture (same helper,

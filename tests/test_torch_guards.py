@@ -56,7 +56,7 @@ PORT_SCRIPTS = ["probe_gpu", "synthetic_demo_torch", "evaluate_dsec_torch",
 def test_port_never_imports_jax():
     code = ("import importlib, importlib.util, sys\n"
             f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
-            "import chip_smoke\n"
+            "import chip_smoke, bench_torch\n"
             f"for name in {PORT_SCRIPTS!r}:\n"
             "    spec = importlib.util.spec_from_file_location(name, f'scripts/{name}.py')\n"
             "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
@@ -120,6 +120,39 @@ def test_scripts_need_the_card(monkeypatch, tmp_path, name, argv):
     if name == "convert_poses_torch":
         assert mod.main(argv + ["--device", "cpu"]) == 0
         np.testing.assert_array_equal(np.load(tmp_path / "out.npz")["t"], [0.0, 1.0])
+
+
+def _bench_torch(monkeypatch):
+    """bench_torch.py loaded afresh, cut to a small size."""
+    spec = importlib.util.spec_from_file_location("_guard_bench_torch",
+                                                  os.path.join(REPO, "bench_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    for k, v in dict(WIDTH=128, HEIGHT=96, DIM_Z=16, N_EVENTS=16384, PACKET=512).items():
+        monkeypatch.setattr(mod, k, v)
+    return mod
+
+
+def test_bench_torch_needs_the_card(monkeypatch):
+    """bench_torch.py's main raises without a card: the bench has no CPU
+    run."""
+    mod = _bench_torch(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main()
+
+
+def test_bench_torch_store_failure_raises(monkeypatch):
+    """A native event store that fails fails the sustained loop: it does not
+    go on from the numpy stream, as bench.py does."""
+    mod = _bench_torch(monkeypatch)
+
+    def broken(path, events):
+        raise OSError("evs_create failed")
+
+    monkeypatch.setattr(mod.evstore, "write_store", broken)
+    with pytest.raises(OSError, match="evs_create"):
+        mod.full_seq_sustained("hist:g4,seg4", 8, n_chunks=2, warmup=1, device="cpu")
 
 
 def test_evaluate_dsec_needs_no_card(monkeypatch, tmp_path):

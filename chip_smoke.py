@@ -120,6 +120,17 @@ Phases (each raises on failure, so the script exits non-zero):
                 their PNGs, the golden gate passed on the literal spec; the
                 sustained chunks' downlinked bytes equal to the same loop's
                 inside `mapper.eager()`.
+ 15. scaling -- scripts/scaling_bench_torch.py's protocol at its workload
+                (320x240x64, 262,144 events, `hist:g16,seg8`, packet 512):
+                meshes (1,1), (2,1), (4,1), (8,1), (1,8), (2,4) on up to 8
+                ranks sharing the card (gloo), each the min over 6 runs of
+                3 steps; its table and report, each row's share of rank
+                0's depth indices equal to the (1,1) row's (recorded, not
+                gated); fails on a missing or non-finite row, on kernels
+                A and B not both launched on the (1,1) row, or on report
+                fields other than SCALING.json's plus `backend` and
+                `ranks`.  Its launches of kernels A and B are added to
+                their rows of the kernels line.
 Phases 4-11 run the chunk on its programs, as a user's call does, and
 phase 10 the sharded steps on theirs.
 Each phase logs its seconds; the line before the two result lines gives
@@ -286,6 +297,8 @@ def script(name: str):
     spec = importlib.util.spec_from_file_location(
         name, os.path.join(HERE, "scripts", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
+    # Registered under its name, so that ranks it spawns can import it.
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return mod
 
@@ -3180,6 +3193,69 @@ def bench_phase(dev, roofline=None, min_time=BENCH_MIN_TIME, n_chunks=BENCH_CHUN
     return line
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the sharding-overhead protocol (scripts/scaling_bench_torch.py)
+# ---------------------------------------------------------------------------
+
+# The fields the port's report adds to a row of scripts/scaling_bench.py's.
+SCALING_EXTRA = ("backend", "ranks")
+
+
+def scaling_fields_match(rep: dict, ref: dict) -> list:
+    """Where the field names of `rep` differ from those of `ref`
+    (SCALING.json), a row of `rep` having SCALING_EXTRA besides."""
+    diffs = []
+    for part in (None, "workload", "target", "summary"):
+        a = set(rep if part is None else rep[part])
+        b = set(ref if part is None else ref[part])
+        if a != b:
+            diffs.append((part or "top level", sorted(a ^ b)))
+    want = set(ref["results"][0]) | set(SCALING_EXTRA)
+    for row in rep["results"]:
+        if set(row) != want:
+            diffs.append((f"row {row.get('mesh')}", sorted(set(row) ^ want)))
+    return diffs
+
+
+def scaling_phase(dev, smi="") -> dict:
+    """Phase 15: scripts/scaling_bench_torch.py's protocol on this device at
+    its workload (320x240x64, 262,144 events, `hist:g16,seg8`): every mesh
+    on ranks sharing the device, timed as its main times them; the table,
+    each row's share of rank 0's depth indices equal to the (1,1) row's
+    (recorded, not gated), and the report.  Raises where a row is missing
+    or not finite, where kernels A and B did not both run on the (1,1) row
+    (on the card), or where the report's field names differ from
+    SCALING.json's but for SCALING_EXTRA.  Returns rank 0's launches
+    summed over the rows, and the report."""
+    from dvs_mcemvs_torch.parallel import pick_mesh_shape
+
+    sb = script("scaling_bench_torch")
+    default_mesh = pick_mesh_shape(8, sb.DIM_Z, backend=sb.BACKEND)
+    t0 = time.perf_counter()
+    rows = sb.run(sb.MESHES, str(dev))
+    seconds = time.perf_counter() - t0
+    sb.check_rows(rows, sb.MESHES, str(dev))
+    rep = sb.report(rows, default_mesh, smi or str(dev))
+    log(f"  {len(rows)} meshes on {max(r['ranks'] for r in rows)} ranks sharing {dev}, "
+        f"{sb.N_EVENTS} events, {sb.DIM_Z}x{sb.HEIGHT}x{sb.WIDTH}, {sb.BACKEND}, packet "
+        f"{sb.PACKET}: {seconds:.1f} s with start-up")
+    for row, res in zip(rows, rep["results"]):
+        log(f"  mesh {tuple(res['mesh'])}: {res['ranks']} rank(s) over {res['backend']}, "
+            f"{res['seconds_per_step']:.6f} s a step (min of {sb.RUNS} runs of {sb.STEPS}), "
+            f"spread {res['run_spread_rel']:.3f}, overhead {res['overhead_vs_1dev']:+.4f}, "
+            f"efficiency floor {res['projected_efficiency_floor']:.4f}"
+            f"{' (shipped default)' if res['is_shipped_default'] else ''}; rank 0's depth "
+            f"indices equal to (1, 1)'s on {row['equal_to_1x1']:.5f}; launches "
+            f"{row['launches']}")
+    log(f"  summary: {json.dumps(rep['summary'])}")
+    with open(os.path.join(HERE, "SCALING.json")) as f:
+        diffs = scaling_fields_match(rep, json.load(f))
+    if diffs:
+        raise AssertionError(f"the report's fields differ from SCALING.json's: {diffs}")
+    launches = {k: sum(r["launches"][k] for r in rows) for k in sb.KERNELS}
+    return {"launches": launches, "report": rep}
+
+
 def optional_modules() -> str:
     """Which of the optional host packages import here."""
     import importlib
@@ -3214,7 +3290,7 @@ def main() -> int:
             log(f"  phase {len(marks)} in {marks[-1]:.1f} s")
         if title:
             marks.append(now)
-            log(f"[{len(marks)}/14] {title}")
+            log(f"[{len(marks)}/15] {title}")
 
     dev = require_cuda()
     smi = nvidia_smi_line()
@@ -3304,6 +3380,12 @@ def main() -> int:
     phase(f"bench: bench_torch.py's steps against mapper.eager(), its stages and its line; "
           f"{smi}")
     bench_phase(dev, whole["roofline"])
+
+    phase(f"scaling: scripts/scaling_bench_torch.py's six meshes on ranks sharing the card; "
+          f"{smi}")
+    scaling = scaling_phase(dev, smi=smi)
+    for name, n in scaling["launches"].items():
+        launches[name] += n
     phase()
 
     binning_src = "dvs_mcemvs_torch/csrc/binning.cu"

@@ -23,6 +23,15 @@ FUSE_AM = 4
 FUSE_RMS = 5
 FUSE_MAX = 6
 
+FUSION_NAMES = {
+    FUSE_MIN: "min",
+    FUSE_HM: "harmonic_mean",
+    FUSE_GM: "geometric_mean",
+    FUSE_AM: "arithmetic_mean",
+    FUSE_RMS: "rms",
+    FUSE_MAX: "max",
+}
+
 
 def fuse_add(g1, g2):
     return g1 + g2

@@ -304,6 +304,12 @@ def anchor_path(cfg: GoldenConfig) -> str:
     return os.path.join(_REPO, "tests", "golden", cfg.npz_name)
 
 
+# The committed anchors of the three profiles (`anchor_path` of each).
+GOLDEN_NPZ = anchor_path(FULL)
+GOLDEN_SMALL_NPZ = anchor_path(SMALL)
+GOLDEN_BENCH16_NPZ = anchor_path(BENCH16)
+
+
 def golden_meta(cfg: GoldenConfig) -> dict:
     """The `meta` record of a committed anchor."""
     return json.loads(str(np.load(anchor_path(cfg))["meta"]))

@@ -50,7 +50,7 @@ def _clean_env():
 PORT_SCRIPTS = ["probe_gpu", "synthetic_demo_torch", "evaluate_dsec_torch",
                 "convert_poses_torch", "golden_device_probe_torch",
                 "bf_divergence_probe_torch", "roofline_torch", "profile_torch_chunk",
-                "time_chunk_torch"]
+                "time_chunk_torch", "scaling_bench_torch"]
 
 
 def test_port_never_imports_jax():
@@ -105,7 +105,9 @@ def _script(name):
     ("convert_poses_torch", ["{poses}", "{out}"]),
     ("golden_device_probe_torch", ["hist:g8,seg8,bf,pl", "--cfg", "SMALL"]),
     ("bf_divergence_probe_torch", ["--cfg", "SMALL"]),
-], ids=["synthetic_demo", "convert_poses", "golden_device_probe", "bf_divergence_probe"])
+    ("scaling_bench_torch", ["--out", "{out}"]),
+], ids=["synthetic_demo", "convert_poses", "golden_device_probe", "bf_divergence_probe",
+        "scaling_bench"])
 def test_scripts_need_the_card(monkeypatch, tmp_path, name, argv):
     """Each script that runs the port raises without a card unless
     `--device cpu` asks for the CPU (convert_poses_torch.py, the quick one,
@@ -120,6 +122,23 @@ def test_scripts_need_the_card(monkeypatch, tmp_path, name, argv):
     if name == "convert_poses_torch":
         assert mod.main(argv + ["--device", "cpu"]) == 0
         np.testing.assert_array_equal(np.load(tmp_path / "out.npz")["t"], [0.0, 1.0])
+
+
+@pytest.mark.parametrize("module,name", [
+    ("ops.grid", "FUSION_NAMES"), ("utils.golden", "GOLDEN_NPZ"),
+    ("utils.golden", "GOLDEN_SMALL_NPZ"), ("utils.golden", "GOLDEN_BENCH16_NPZ"),
+])
+def test_public_constants_match_jax(module, name):
+    """The port's copies of the JAX package's public constants are equal to
+    them (the golden anchors are the same files, reached from the port's
+    own repository root)."""
+    import importlib
+
+    got = getattr(importlib.import_module(f"dvs_mcemvs_torch.{module}"), name)
+    want = getattr(importlib.import_module(f"dvs_mcemvs_tpu.{module}"), name)
+    assert got == want
+    if name.startswith("GOLDEN"):
+        assert os.path.isfile(got) and got.startswith(REPO)
 
 
 def _bench_torch(monkeypatch):

@@ -131,6 +131,17 @@ Phases (each raises on failure, so the script exits non-zero):
                 fields other than SCALING.json's plus `backend` and
                 `ranks`.  Its launches of kernels A and B are added to
                 their rows of the kernels line.
+ 16. vote    -- the exact vote's kernel (csrc/scatter.cu) against its plain
+                version on the card at both presets' camera shapes (phase
+                4's 2 x 1 Mi-event chunk at 640x480x100; 131,072 events at
+                346x260x100) and on a plane-sharded slice (planes 50-100),
+                with invalid packets, weights and coordinates off the image
+                and non-finite: the same non-zero voxels, relative L1 <=
+                1e-6, one launch counted a call; its time by graph and by
+                loop, the plain version's, the bound by bytes and the
+                taps (4 an event a plane) a second; then its launches on the main path under
+                `scatter`: 2 a process_1 chunk, 4 a process_2 chunk of 2
+                sub-intervals, no other kernel.
 Phases 4-11 run the chunk on its programs, as a user's call does, and
 phase 10 the sharded steps on theirs.
 Each phase logs its seconds; the line before the two result lines gives
@@ -668,11 +679,12 @@ def one_hot_engine_cases(dev, G, E, Z, Ho, Wo, iters, small=(260, 346)) -> dict:
 
 def wrappers() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
-    from dvs_mcemvs_torch.kernels import binning, probes, resample
+    from dvs_mcemvs_torch.kernels import binning, probes, resample, scatter
 
     return {"bin_events": binning.bin_events,
             "banded_resample_sum": resample.banded_resample_sum,
             "banded_resample_fanin": resample.banded_resample_fanin,
+            "scatter_vote": scatter.scatter_vote,
             "smem_copy": probes.smem_copy, "block_step": probes.block_step,
             "hbm_stream": probes.hbm_stream, "dyn_slice": probes.dyn_slice}
 
@@ -689,7 +701,7 @@ def read_counts() -> dict:
 def empty_calls_launch_nothing(dev):
     """Calls with no events or no items launch no kernel, so their wrappers
     count no launch."""
-    from dvs_mcemvs_torch.kernels import binning, probes, resample
+    from dvs_mcemvs_torch.kernels import binning, probes, resample, scatter
 
     before = read_counts()
     f32 = dict(dtype=torch.float32, device=dev)
@@ -706,6 +718,8 @@ def empty_calls_launch_nothing(dev):
     probes.block_step(empty)
     probes.hbm_stream(torch.zeros((2, 0, 8), dtype=torch.bfloat16, device=dev))
     probes.dyn_slice(torch.zeros((1, 200, 0), **f32))
+    scatter.scatter_vote(torch.zeros((0, 2), **f32), torch.zeros(0, **f32),
+                         torch.zeros((0, 100, 4), **f32), width=640, height=480)
     if read_counts() != before:
         raise AssertionError("an empty call counted a kernel launch")
     log("  empty calls: no launch counted")
@@ -3256,6 +3270,145 @@ def scaling_phase(dev, smi="") -> dict:
     return {"launches": launches, "report": rep}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the exact vote's kernel (csrc/scatter.cu)
+# ---------------------------------------------------------------------------
+
+# The kernel against its plain version on the card: the same votes summed in
+# another order, so the same non-zero voxels and at most this relative L1.
+VOTE_L1 = 1e-6
+# Events a camera DSI at the presets' camera shapes (DSEC: the headline
+# chunk; MVSEC: a 1 s window's sub-interval), and planes of the sharded
+# slice (the second half of the headline depths, z0 of the first plane).
+VOTE_MVSEC_EVENTS, VOTE_MVSEC_W, VOTE_MVSEC_H = 131_072, 346, 260
+VOTE_SLICE = slice(50, 100)
+
+
+def _vote_inputs(workload, rng):
+    """Camera 0's warped packets of `workload`'s chunk (bucket-padded, at
+    process_1's reference view) made harder: every 7th packet invalid,
+    random weights with a tenth zero, and 1 % of the events each moved far
+    outside the image or to +-inf or NaN.  Returns (xy, pw, coef, mapper)."""
+    from dvs_mcemvs_torch import mapper as mappermod, pipeline
+    from dvs_mcemvs_torch.ops import voting
+
+    mappers, events, trajs, _ = workload
+    m = mappers[0]
+    T_rv_w = pipeline.place_reference_view(trajs[0], 0.5)
+    packets, depths, z0 = mappermod.warp_chunk(m, events[0], trajs[0], T_rv_w, PACKET,
+                                               "device", "bucket")
+    K, P, _ = packets.xy_z0.shape
+    dev = packets.xy_z0.device
+    xy = packets.xy_z0.reshape(K * P, 2).clone()
+    odd = torch.as_tensor(rng.choice(K * P, K * P // 100, replace=False), device=dev)
+    values = torch.tensor([float("inf"), -float("inf"), float("nan"), -1e6, 1e6], device=dev)
+    xy[odd, torch.as_tensor(rng.integers(0, 2, len(odd)), device=dev)] = values[
+        torch.as_tensor(rng.integers(0, len(values), len(odd)), device=dev)]
+    valid = packets.valid.clone()
+    valid[::7] = False
+    weight = torch.as_tensor(rng.uniform(0, 1, (K, P)) * (rng.uniform(size=(K, P)) > 0.1),
+                             dtype=torch.float32, device=dev)
+    packets = voting.WarpedPackets(xy.reshape(K, P, 2), packets.centers, valid, weight)
+    vc = m.vcam
+    coef = torch.stack(voting.eq15_coefficients(packets.centers, depths, z0, float(vc.fx),
+                                                float(vc.fy), float(vc.cx), float(vc.cy)), -1)
+    return xy, packets.event_weights(), coef, m
+
+
+def vote_kernel_row(dev, what, xy, pw, coef, width, height, iters=10) -> dict:
+    """`scatter_vote` against `scatter_vote_reference` on the card: one
+    launch counted, the same non-zero voxels, relative L1 <= VOTE_L1; the
+    kernel by graph and by loop, the plain version by loop, the bound by
+    bytes (events, coefficients and the DSI once) and the taps a second."""
+    from dvs_mcemvs_torch.kernels import scatter
+
+    E, (K, Z, _) = xy.shape[0], coef.shape
+    before = scatter.scatter_vote.launches
+    got = scatter.scatter_vote(xy, pw, coef, width=width, height=height)
+    _sync(dev)
+    if scatter.scatter_vote.launches != before + 1:
+        raise AssertionError(f"{what}: {scatter.scatter_vote.launches - before} launches "
+                             "counted for one call")
+    want = scatter.scatter_vote_reference(xy, pw, coef, width, height)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: the kernel's DSI is not finite")
+    differ = int(((got != 0) != (want != 0)).sum())
+    l1 = _rel_l1(got, want)
+    if differ or not l1 <= VOTE_L1:
+        raise AssertionError(f"{what}: {differ} voxels non-zero on one side only, relative "
+                             f"L1 {l1:.3g} (limit {VOTE_L1:g})")
+    max_abs = float((got - want).abs().max())
+    del got, want
+    t = timings(lambda: scatter.scatter_vote(xy, pw, coef, width=width, height=height),
+                lambda: scatter.scatter_vote_reference(xy, pw, coef, width, height),
+                iters=iters)
+    moved = (xy.numel() + pw.numel() + coef.numel() + Z * height * width) * 4
+    bound = work_model().bound(moved, 0)
+    taps = 4 * E * Z
+    row = dict(max_abs_err=max_abs, rel_l1=l1, **t, **bound, ceiling_ms=None,
+               ceiling_share=None, slab=scatter.slab_planes(Z, height, width), taps=taps,
+               g_taps_per_s=taps / t["ms"] / 1e6)
+    log(f"  scatter_vote {what} ({E} events, {K} packets -> {Z}x{height}x{width}, slab "
+        f"{row['slab']}): relative L1 {l1:.3g}, non-zero voxels equal; {t['ms']:.4f} ms by "
+        f"graph, {t['loop_ms']:.4f} by loop, plain {t['plain_ms']:.3f}; bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, {moved / 1e6:.1f} MB); "
+        f"{taps / 1e6:.1f} M taps: {row['g_taps_per_s']:.1f} G taps/s")
+    return row
+
+
+def vote_kernel_phase(dev, workload, iters=10) -> dict:
+    """The exact vote's kernel against its plain version on the card at the
+    presets' camera shapes: the headline chunk's camera (640x480x100, 1 Mi
+    events), a 346x260x100 camera of VOTE_MVSEC_EVENTS and a plane-sharded
+    slice of the headline depths, each with invalid packets, weights and
+    out-of-bounds and non-finite coordinates (`vote_kernel_row`); then the
+    launches a chunk on the main path: process_1 under `scatter` 2 (one a
+    camera DSI), process_2 of 2 sub-intervals 4, and no other kernel.
+    Returns the rows by name and the launches by path."""
+    from dvs_mcemvs_torch import pipeline
+
+    rng = np.random.default_rng(16)
+    rows = {}
+    xy, pw, coef, m = _vote_inputs(workload, rng)
+    H, W = m.height, m.width
+    rows["scatter_vote"] = vote_kernel_row(dev, f"DSEC {W}x{H}", xy, pw, coef, W, H, iters)
+    rows["scatter_vote_slice"] = vote_kernel_row(
+        dev, f"planes {VOTE_SLICE.start}-{VOTE_SLICE.stop} of {W}x{H}", xy, pw,
+        coef[:, VOTE_SLICE].contiguous(), W, H, iters)
+    del xy, pw, coef
+    small = build_workload(dev, n_events=VOTE_MVSEC_EVENTS, width=VOTE_MVSEC_W,
+                           height=VOTE_MVSEC_H)
+    xy, pw, coef, m = _vote_inputs(small, rng)
+    rows["scatter_vote_mvsec"] = vote_kernel_row(dev, f"MVSEC {m.width}x{m.height}", xy, pw,
+                                                 coef, m.width, m.height, iters)
+    del xy, pw, coef
+
+    mappers, events, trajs, _ = workload
+    vopts = pipeline.VotingOptions(packet_size=PACKET, backend="scatter", pad_policy="bucket")
+    paths = {"process_1": (lambda: run_chunk(workload, "scatter"), 2),
+             "process_2, 2 sub-intervals": (lambda: pipeline.process_2(
+                 mappers, events, trajs, 0.5, stereo_fusion=2,
+                 temporal_fusion=pipeline.TEMPORAL_AM, num_intervals=2, vopts=vopts), 4)}
+    launches = {}
+    for path, (run, want) in paths.items():
+        run()  # programs captured, kernels built
+        _sync(dev)
+        zero_counts()
+        run()
+        _sync(dev)
+        counts = read_counts()
+        launches[path] = counts
+        log(f"  {path} under scatter: launches {counts}")
+        others = {k: n for k, n in counts.items() if k != "scatter_vote" and n}
+        if counts["scatter_vote"] != want or others:
+            raise AssertionError(f"{path}: scatter_vote launched {counts['scatter_vote']} "
+                                 f"times (want {want}), others {others}")
+    seconds = median_seconds(lambda: run_chunk(workload, "scatter"), N_TIMED)[0]
+    log(f"  process_1 + get_depth_map under scatter: {seconds:.4f} s a chunk (median of "
+        f"{N_TIMED})")
+    return {"rows": rows, "launches": launches, "chunk_s": seconds}
+
+
 def optional_modules() -> str:
     """Which of the optional host packages import here."""
     import importlib
@@ -3277,7 +3430,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     from dvs_mcemvs_torch.device import require_cuda
-    from dvs_mcemvs_torch.kernels import _build, binning, probes, resample
+    from dvs_mcemvs_torch.kernels import _build, binning, probes, resample, scatter
 
     t_start = time.perf_counter()
     marks = []
@@ -3290,7 +3443,7 @@ def main() -> int:
             log(f"  phase {len(marks)} in {marks[-1]:.1f} s")
         if title:
             marks.append(now)
-            log(f"[{len(marks)}/15] {title}")
+            log(f"[{len(marks)}/16] {title}")
 
     dev = require_cuda()
     smi = nvidia_smi_line()
@@ -3301,8 +3454,8 @@ def main() -> int:
 
     phase("build (nvcc, sm_90a, one process per source)")
     t0 = time.perf_counter()
-    _build.build("binning", "resample", "probes")
-    for lib in (binning, resample, probes):
+    _build.build("binning", "resample", "probes", "scatter")
+    for lib in (binning, resample, probes, scatter):
         lib._library()
     log(f"  built in {time.perf_counter() - t0:.2f} s")
     for name, (seconds, report) in _build.BUILD_INFO.items():
@@ -3386,11 +3539,18 @@ def main() -> int:
     scaling = scaling_phase(dev, smi=smi)
     for name, n in scaling["launches"].items():
         launches[name] += n
+
+    phase(f"the exact vote's kernel against its plain version at both presets' camera "
+          f"shapes and a plane slice; its launches a chunk; {smi}")
+    vote = vote_kernel_phase(dev, workload)
+    results.update(vote["rows"])
+    launches["scatter_vote"] = vote["launches"]["process_1"]["scatter_vote"]
     phase()
 
     binning_src = "dvs_mcemvs_torch/csrc/binning.cu"
     resample_src = "dvs_mcemvs_torch/csrc/resample.cu"
     probes_src = "dvs_mcemvs_torch/csrc/probes.cu"
+    scatter_src = "dvs_mcemvs_torch/csrc/scatter.cu"
     sources = {
         "bin_events": (binning_src, "dvs_mcemvs_tpu/kernels/binning_pallas.py:317"),
         "bin_events_int8": (binning_src, "dvs_mcemvs_tpu/kernels/binning_pallas.py:317"),
@@ -3402,6 +3562,7 @@ def main() -> int:
         "block_step": (probes_src, "scripts/probe_tpu.py:96"),
         "hbm_stream": (probes_src, "scripts/probe_tpu.py:116"),
         "dyn_slice": (probes_src, "scripts/probe_tpu.py:139"),
+        "scatter_vote": (scatter_src, None),
     }
     missing = [name for name in sources if launches[name] == 0]
     if missing:

@@ -39,10 +39,11 @@ import numpy as np
 import torch
 
 from . import tracing
-from .kernels import binning, resample
+from .kernels import binning, resample, scatter
 
 # The kernel wrappers a body reaches, whose launch counts a replay adds.
-COUNTED = (binning.bin_events, resample.banded_resample_sum, resample.banded_resample_fanin)
+COUNTED = (binning.bin_events, resample.banded_resample_sum, resample.banded_resample_fanin,
+           scatter.scatter_vote)
 
 _eager = threading.local()
 

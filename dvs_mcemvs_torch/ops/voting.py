@@ -18,6 +18,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..kernels import scatter
+from ..kernels.scatter import bilinear_corners
 from . import se3, trajectory as trajmod
 from .camera import PinholeCamera
 from .se3 import SE3
@@ -157,28 +159,6 @@ def eq15_coefficients(centers: torch.Tensor, depths: torch.Tensor, z0: float,
     return a, bx, by, d
 
 
-def bilinear_corners(xf: torch.Tensor, yf: torch.Tensor, width: int, height: int):
-    """4-corner flat indices (y*W+x) and weights of the reference splat;
-    out-of-bounds votes get weight 0 and index 0."""
-    valid = (xf >= 0.0) & (yf >= 0.0)
-    x0 = torch.floor(xf).to(torch.int64)
-    y0 = torch.floor(yf).to(torch.int64)
-    inb = valid & (x0 + 1 < width) & (y0 + 1 < height)
-    fx = xf - x0.to(xf.dtype)
-    fy = yf - y0.to(yf.dtype)
-    w00 = (1 - fx) * (1 - fy)
-    w10 = fx * (1 - fy)
-    w01 = (1 - fx) * fy
-    w11 = fx * fy
-    x0c = torch.where(inb, x0, 0)
-    y0c = torch.where(inb, y0, 0)
-    base = y0c * width + x0c
-    idx4 = torch.stack([base, base + 1, base + width, base + width + 1], dim=-1)
-    w4 = torch.stack([w00, w10, w01, w11], dim=-1)
-    w4 = torch.where(inb[..., None], w4, torch.zeros_like(w4))
-    return idx4, w4
-
-
 def splat_scatter(
     packets: WarpedPackets,
     depths: torch.Tensor,
@@ -188,27 +168,15 @@ def splat_scatter(
     height: int,
     plane_block: int = 8,
 ) -> torch.Tensor:
-    """Exact per-event bilinear scatter-add (`index_add_`) into every plane,
-    a block of `plane_block` planes at a time to bound the index tensor."""
+    """Exact per-event bilinear scatter-add into every plane:
+    `kernels.scatter.scatter_vote` on the Eq. 15 coefficients of every
+    (packet, plane).  `plane_block` is the plain version's block of planes."""
     fx, fy, cx, cy = vcam_params
     K, P, _ = packets.xy_z0.shape
-    E = K * P
-    xy = packets.xy_z0.reshape(E, 2)
-    pw = packets.event_weights()
-    Z = depths.shape[0]
-    out = torch.zeros((Z, height * width), dtype=torch.float32, device=xy.device)
-    for z_lo in range(0, Z, plane_block):
-        sl = slice(z_lo, min(z_lo + plane_block, Z))
-        a, bx, by, d = (c.T.repeat_interleave(P, dim=1) for c in eq15_coefficients(
-            packets.centers, depths[sl], z0, fx, fy, cx, cy))     # (ZB, E)
-        X = (xy[None, :, 0] * a + bx) / d
-        Y = (xy[None, :, 1] * a + by) / d
-        idx4, w4 = bilinear_corners(X, Y, width, height)   # (ZB, E, 4)
-        w4 = w4 * pw[None, :, None]
-        blk = out[sl]
-        for zb in range(blk.shape[0]):
-            blk[zb].index_add_(0, idx4[zb].reshape(-1), w4[zb].reshape(-1))
-    return out.reshape(Z, height, width)
+    coef = torch.stack(eq15_coefficients(packets.centers, depths, z0, fx, fy, cx, cy),
+                       dim=-1)                                      # (K, Z, 4)
+    return scatter.scatter_vote(packets.xy_z0.reshape(K * P, 2), packets.event_weights(),
+                                coef, width=width, height=height, plane_block=plane_block)
 
 
 def splat_sort(

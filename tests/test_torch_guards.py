@@ -27,6 +27,7 @@ SLICE_MODULES = [
     "dvs_mcemvs_torch.ops.grid", "dvs_mcemvs_torch.ops.extract",
     "dvs_mcemvs_torch.kernels._build", "dvs_mcemvs_torch.kernels.binning",
     "dvs_mcemvs_torch.kernels.resample", "dvs_mcemvs_torch.kernels.probes",
+    "dvs_mcemvs_torch.kernels.scatter",
     "dvs_mcemvs_torch.utils.synthetic", "dvs_mcemvs_torch.utils.golden",
     "dvs_mcemvs_torch.ops.pointcloud", "dvs_mcemvs_torch.config",
     "dvs_mcemvs_torch.checkpoint", "dvs_mcemvs_torch.io", "dvs_mcemvs_torch.io.calib",

@@ -11,6 +11,7 @@ imports no JAX, so on the card it runs as
 """
 
 import bisect
+import itertools
 import json
 import logging
 import os
@@ -255,6 +256,14 @@ def test_cli_profile_dir_adds_the_spans(tmp_path, caplog):
             assert any(e["ts"] <= t <= e["ts"] + e["dur"] for t in theirs)
 
 
+# Clock cycles of the spin queued before every other chunk of the card
+# test, ~20 ms at the H100's top SM clock: over twice what the host takes
+# under the profiler to launch a chunk's programs (an ~8 ms spin sometimes
+# ended before the second vote's launch).  The host wakes later from such
+# long waits; the chunks between, with short waits, hold the least wake.
+BUSY_CYCLES = 40_000_000
+
+
 @pytest.mark.card
 def test_device_intervals_share_the_host_clock():
     """On the card, two passes of process_1 waiting for the device after
@@ -273,11 +282,15 @@ def test_device_intervals_share_the_host_clock():
       event runs as it is queued, and under the profiler that call takes
       milliseconds before the graph's first kernel).  Where the card was
       busy, that is also within 50 us of the graph's first kernel, which
-      holds for at least one vote a chunk (the second: the host launches it
-      while the first runs).  The profiler's device stamps drift against
-      its own host stamps, by an amount that differs from one profile to
-      the next, so a line fitted to the end offsets is taken off them; the
-      offsets and the drift are printed."""
+      holds for both votes of every other chunk: a spin of the card queued
+      before those chunks (`BUSY_CYCLES`) keeps it busy while the host
+      launches the chunk's programs, since a camera's vote kernel alone ends
+      before the host launches the next camera's; the chunks between start
+      on an idle card, so both kinds of start are checked.  The profiler's
+      device stamps drift
+      against its own host stamps, by an amount that differs from one
+      profile to the next, so a line fitted to the end offsets is taken off
+      them; the offsets and the drift are printed."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from torch.autograd import DeviceType
@@ -290,8 +303,19 @@ def test_device_intervals_share_the_host_clock():
     fopts = pipeline.FullSeqOptions(start_time=0.0, stop_time=1.0, duration=0.5,
                                     out_skip=0.1)
     kw = dict(stereo_fusion=2, vopts=pipeline.VotingOptions(packet_size=1024, sync=True))
+
+    def busy_every_other():
+        """process_1 with the spin queued before its first, third, ... call."""
+        calls = itertools.count()
+
+        def process(*args, **kwargs):
+            if next(calls) % 2 == 0:
+                torch.cuda._sleep(BUSY_CYCLES)
+            return pipeline.process_1(*args, **kwargs)
+        return process
+
     try:
-        for _ in pipeline.run_full_seq(mappers, events, trajs, fopts, pipeline.process_1,
+        for _ in pipeline.run_full_seq(mappers, events, trajs, fopts, busy_every_other(),
                                        **kw):
             pass
         torch.cuda.synchronize(dev)
@@ -299,7 +323,7 @@ def test_device_intervals_share_the_host_clock():
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(2):
                 n = sum(1 for _ in pipeline.run_full_seq(mappers, events, trajs, fopts,
-                                                         pipeline.process_1, **kw))
+                                                         busy_every_other(), **kw))
             torch.cuda.synchronize(dev)
         tracing.disable()
         snap = tracing.snapshot()
@@ -354,5 +378,5 @@ def test_device_intervals_share_the_host_clock():
                       "device": torch.cuda.get_device_name(0), "torch": torch.__version__}))
     assert len(wake) >= n and min(wake) <= tol, wake
     assert np.all(np.abs(starts) <= tol) and np.all(np.abs(ends) <= tol), (starts, ends)
-    assert busy.sum() >= n, busy
+    assert busy.sum() >= n and (~busy).sum() >= 1, busy
     assert np.all(np.abs(first - np.asarray(d0s))[busy] <= tol), first - np.asarray(d0s)

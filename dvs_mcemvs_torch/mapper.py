@@ -156,6 +156,7 @@ def _stage(events: Events, x: np.ndarray, y: np.ndarray, t: np.ndarray,
     under pad="bucket", w (float32): the tail past the chunk's events holds
     zero-weight events at pixel (0, 0) and the last event's time."""
     n = events.num
+    tracing.staged(n, x.shape[0] - n)
     x[:n] = events.x
     x[n:] = 0
     y[:n] = events.y
@@ -186,6 +187,7 @@ def _stage_device(events: Events, x: torch.Tensor, y: torch.Tensor, t: torch.Ten
     """`_stage` of a chunk whose tensors lie on the buffers' device, on the
     current stream: device-to-device copies and fills, no host round trip."""
     n = events.num
+    tracing.staged(n, x.shape[0] - n)
     for buf, src in ((x, events.x), (y, events.y), (t, events.t)):
         buf[:n].copy_(src, non_blocking=True)
     x[n:].zero_()

@@ -46,9 +46,11 @@ that start inside it.  A pair is resolved once it has completed, by
 `snapshot()`: the tracer waits for the device only at the anchors.
 
 Counters: `graphs.Graph.captures_total` and `replays_total`, the launches
-of `graphs.COUNTED`'s kernel wrappers and
-`graphs.ProgramCache.evictions_total`, each updated under `COUNTS` (exact
-across threads); `snapshot()` reports what they gained since `enable()`.
+of `graphs.COUNTED`'s kernel wrappers,
+`graphs.ProgramCache.evictions_total` and `STAGED` (the vote's staged
+events: the chunk's own and the bucket pad's zero-weight ones, counted by
+`staged` once a camera-chunk), each updated under `COUNTS` (exact across
+threads); `snapshot()` reports what they gained since `enable()`.
 """
 
 from __future__ import annotations
@@ -71,6 +73,19 @@ clock_ns = time.time_ns
 # the program caches' evictions and the counted kernel wrappers' launches.
 COUNTS = threading.Lock()
 _held = threading.local()
+
+
+# Events staged for the vote (`mapper._stage`, `mapper._stage_device`):
+# "events", the chunk's own; "pad", the zero-weight events of the bucket
+# pad past them.
+STAGED = {"events": 0, "pad": 0}
+
+
+def staged(events: int, pad: int) -> None:
+    """Count one staging of `events` events and `pad` pad events."""
+    with COUNTS:
+        STAGED["events"] += events
+        STAGED["pad"] += pad
 
 
 def launched(fn) -> None:
@@ -104,7 +119,8 @@ def _counters() -> dict:
         return {"captures": graphs.Graph.captures_total,
                 "replays": graphs.Graph.replays_total,
                 "evictions": graphs.ProgramCache.evictions_total,
-                "launches": {f.__name__: f.launches for f in graphs.COUNTED}}
+                "launches": {f.__name__: f.launches for f in graphs.COUNTED},
+                "staged": dict(STAGED)}
 
 
 # ---------------------------------------------------------------------------
@@ -335,6 +351,12 @@ def take_device_ms() -> Dict[str, float]:
     return out
 
 
+def pad_share(staged: Dict[str, int]) -> float:
+    """The bucket pad's share of the events staged, in %."""
+    total = staged["events"] + staged["pad"]
+    return 100.0 * staged["pad"] / total if total else 0.0
+
+
 # ---------------------------------------------------------------------------
 # The arithmetic of a session
 # ---------------------------------------------------------------------------
@@ -422,7 +444,7 @@ def snapshot() -> Optional[dict]:
      "by_name": {name: {"count", "host_ms", "device_count",
                         "device_ms" (exclusive)}},
      "counters": {"captures", "replays", "evictions", "launches": {wrapper: n},
-                  "waits", "wait_ms"},
+                  "staged": {"events", "pad"}, "waits", "wait_ms"},
      "process_idle_ms", "idle_by_span": {name: ms}, "gaps": [[name, ms]] (the
      longest), "threads": [name], "spans": [[name, thread, depth, start_ns,
      end_ns, device_start_ns, device_end_ns, device_exclusive_ms]]}
@@ -453,6 +475,7 @@ def snapshot() -> Optional[dict]:
     counters = {k: now[k] - s.base[k] for k in ("captures", "replays", "evictions")}
     counters["launches"] = {k: v - s.base["launches"].get(k, 0)
                             for k, v in now["launches"].items()}
+    counters["staged"] = {k: v - s.base["staged"][k] for k, v in now["staged"].items()}
     waits = [sp for sp in records if sp.name.startswith("wait.")]
     counters["waits"] = len(waits)
     counters["wait_ms"] = sum(sp.end - sp.start for sp in waits) / 1e6
@@ -481,7 +504,8 @@ def snapshot() -> Optional[dict]:
 def summary(snap: dict) -> str:
     """One line of `snap` a chunk (its `process` spans): each span's
     device ms (exclusive) and host ms, the device idle inside `process` by
-    the span it fell in, the longest gaps, and the counters."""
+    the span it fell in, the longest gaps, the bucket pad's share of the
+    staged events, and the counters."""
     n = max(snap["chunks"], 1)
     return (f"{snap['chunks']} chunks; a chunk, device ms: "
             + ", ".join(f"{k} {v['device_ms'] / n:.3f}" for k, v in snap["by_name"].items()
@@ -492,6 +516,7 @@ def summary(snap: dict) -> str:
             + ", ".join(f"{k} {v / n:.3f}" for k, v in snap["idle_by_span"].items())
             + "); longest gaps, ms: "
             + ", ".join(f"{name} {ms:.3f}" for name, ms in snap["gaps"])
+            + f"; pad {pad_share(snap['counters']['staged']):.1f} % of the staged events"
             + f"; counters {json.dumps(snap['counters'])}")
 
 

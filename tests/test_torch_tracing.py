@@ -116,8 +116,8 @@ def test_spans_nest_per_thread():
 
 def test_counters_are_exact_across_threads():
     """4 threads x 10,000 updates of each counter: kernel launches, program
-    evictions, and launches held by a capture, which never reach the
-    wrappers' counts."""
+    evictions, staged events and pad, and launches held by a capture,
+    which never reach the wrappers' counts."""
     n, threads = 10_000, 4
     cache = graphs.ProgramCache(1)
 
@@ -129,6 +129,7 @@ def test_counters_are_exact_across_threads():
         for i in range(n):
             tracing.launched(binning.bin_events)
             cache.put(i, Prog())
+            tracing.staged(1, 2)
         with tracing.held_launches() as held:
             for _ in range(n):
                 tracing.launched(binning.bin_events)
@@ -137,6 +138,7 @@ def test_counters_are_exact_across_threads():
     tracing.enable()
     prev = sys.getswitchinterval()
     counts = binning.bin_events.launches, graphs.ProgramCache.evictions_total
+    staged = dict(tracing.STAGED)
     sys.setswitchinterval(1e-6)
     try:
         pool = [threading.Thread(target=work) for _ in range(threads)]
@@ -149,9 +151,41 @@ def test_counters_are_exact_across_threads():
     finally:
         sys.setswitchinterval(prev)
         binning.bin_events.launches, graphs.ProgramCache.evictions_total = counts
+        tracing.STAGED.update(staged)
     assert snap["counters"]["launches"]["bin_events"] == threads * n
+    assert snap["counters"]["staged"] == {"events": threads * n, "pad": 2 * threads * n}
     assert snap["counters"]["evictions"] == threads * (n - 1)
     assert snap["counters"]["captures"] == snap["counters"]["replays"] == 0
+
+
+@pytest.mark.parametrize("pad,n,want_pad", [
+    ("bucket", 3 * 256 + 5, 4 * 256 - (3 * 256 + 5)),   # off a bucket edge: padded
+    ("bucket", 4 * 256, 0),                             # on a bucket edge
+    ("bucket", 5 * 256 + 1, 8 * 256 - (5 * 256 + 1)),
+    ("none", 3 * 256 + 5, 0),                           # no pad: the count as it is
+])
+def test_staged_counts_the_events_and_the_bucket_pad(pad, n, want_pad):
+    """On the CPU's eager path each camera-chunk counts its events and the
+    bucket pad's zero-weight events once, in the snapshot and the summary
+    line."""
+    from dvs_mcemvs_torch import mapper
+
+    mappers, events, trajs = _rig("cpu")
+    ev = events[0].slice(0, n)
+    assert ev.num == n
+    tracing.enable("cpu")
+    for i in range(1, 3):
+        dsi = mapper.evaluate_dsi(mappers[0], ev, trajs[0], se3.identity(device="cpu"),
+                                  packet_size=256, pad=pad)
+        assert dsi is not None
+        assert tracing.snapshot()["counters"]["staged"] == {"events": i * n,
+                                                            "pad": i * want_pad}
+    tracing.disable()
+    snap = tracing.snapshot()
+    assert snap["counters"]["staged"] == {"events": 2 * n, "pad": 2 * want_pad}
+    share = 100.0 * want_pad / (n + want_pad)
+    assert tracing.pad_share(snap["counters"]["staged"]) == pytest.approx(share)
+    assert f"; pad {share:.1f} % of the staged events; counters " in tracing.summary(snap)
 
 
 @pytest.mark.parametrize("intervals,want", [

@@ -10,11 +10,13 @@ memory pool, and each replay adds the kernel launches its capture recorded;
 `warm_up` runs the body eagerly on a side stream before the first capture
 (building the kernels, filling the plan and table caches); `Staging` moves a
 call's host arrays into static buffers through two pinned buffers used in
-turn; `Captured` is the program of a body over static device tensors (the
-caller's tensors copied in on the card, fresh copies of the result out);
-`ProgramCache` keeps the programs of a kind, dropping the least recently
-used.  `eager()` turns every program off on its thread (the counterpart of
-`jax.disable_jit()`).
+turn; `PageLocks` page-locks in place the host arrays that a run slices its
+chunks from, once a process, so that a chunk is copied to the card by DMA
+with no copy on the host; `Captured` is the program of a body over static
+device tensors (the caller's tensors copied in on the card, fresh copies
+of the result out); `ProgramCache` keeps the programs of a kind, dropping
+the least recently used.  `eager()` turns every program off on its thread
+(the counterpart of `jax.disable_jit()`).
 
 A body reads nothing back from the card: the binning's weight checks set a
 per-device fault flag (`fault_flag`), which `check_faults` reads once a
@@ -32,7 +34,9 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import mmap
 import threading
+import weakref
 from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
@@ -290,20 +294,22 @@ class Graph:
 
 class Staging:
     """Host arrays into the static device `buffers` through two pinned host
-    buffer sets used in turn: a load fills the set not in flight (waiting
-    for that set's last copies first) and queues its copies on the current
-    stream."""
+    buffer sets used in turn, made on the first load: a load fills the set
+    not in flight (waiting for that set's last copies first) and queues its
+    copies on the current stream."""
 
     def __init__(self, buffers: List[torch.Tensor]):
         self.buffers = buffers
-        self.host = [[torch.empty(b.shape, dtype=b.dtype, pin_memory=True) for b in buffers]
-                     for _ in range(2)]
+        self.host: Optional[List[List[torch.Tensor]]] = None
         self.copied = [None, None]  # the event after each set's copies
         self.loads = 0
 
     def load(self, fill: Callable[[List[np.ndarray]], None]) -> None:
         """fill(host) writes the call's data into `host`, numpy views of one
         pinned set; then its copies into the buffers are queued."""
+        if self.host is None:
+            self.host = [[torch.empty(b.shape, dtype=b.dtype, pin_memory=True)
+                          for b in self.buffers] for _ in range(2)]
         slot = self.loads % 2
         self.loads += 1
         if self.copied[slot] is not None:
@@ -316,6 +322,139 @@ class Staging:
             dst.copy_(src, non_blocking=True)
         self.copied[slot] = torch.cuda.Event()
         self.copied[slot].record()
+
+
+# ---------------------------------------------------------------------------
+# Host arrays page-locked in place
+# ---------------------------------------------------------------------------
+
+# cudaHostRegisterPortable: the pages are locked for every device's context.
+_PORTABLE = 1
+
+
+def _isolated(call: Callable[[], object]) -> object:
+    """call() on a thread of its own, its result (None where it raised): a
+    CUDA runtime call that fails leaves the error as its thread's last
+    error, where the next kernel launch's check on that thread would raise
+    it."""
+    out = []
+
+    def run():
+        try:
+            out.append(call())
+        except RuntimeError:
+            pass
+
+    th = threading.Thread(target=run, name="host-register")
+    th.start()
+    th.join()
+    return out[0] if out else None
+
+
+def cuda_host_register(ptr: int, size: int) -> bool:
+    """Page-lock [ptr, ptr + size) in place for every device
+    (cudaHostRegister); False where the call fails."""
+    rt = torch.cuda.cudart()
+    return _isolated(lambda: rt.cudaHostRegister(ptr, size, _PORTABLE)) == rt.cudaError.success
+
+
+def cuda_host_unregister(ptr: int, done: Optional[torch.cuda.Event]) -> None:
+    """Wait for `done` (the last copy from the range, if any), then release
+    the range that `cuda_host_register` locked at `ptr`."""
+    def call():
+        if done is not None:
+            done.synchronize()
+        return torch.cuda.cudart().cudaHostUnregister(ptr)
+
+    _isolated(call)
+
+
+def _owner(a: np.ndarray) -> np.ndarray:
+    """The array whose memory `a` views (`a` itself where it is no view)."""
+    while isinstance(a.base, np.ndarray):
+        a = a.base
+    return a
+
+
+class _Locked:
+    """A page-locked range: its first page, and the event after the last
+    copies queued from it."""
+
+    __slots__ = ("ptr", "done")
+
+    def __init__(self, ptr: int):
+        self.ptr, self.done = ptr, None
+
+
+class PageLocks:
+    """The process's host arrays page-locked in place, so that the chunks
+    sliced from them reach the card by DMA with no copy on the host.
+
+    `lock` locks the pages that cover each array's owner (the array whose
+    memory it views, or itself) through `register(ptr, size)`, once for
+    the process however often it is asked, and releases them through
+    `unregister(ptr, done)` as the owner is freed, after the last copies
+    from it (`copied`).  An owner that `register` refuses (memory already
+    locked, a limit, memory that cannot be locked) is remembered as
+    refused.  `locked` only looks: a chunk whose arrays it finds in no
+    locked owner is staged as any other.  The arrays must not change while
+    the card may still read them."""
+
+    def __init__(self, register: Callable[[int, int], bool] = cuda_host_register,
+                 unregister: Callable[[int, Optional[torch.cuda.Event]], None] =
+                 cuda_host_unregister):
+        self.register, self.unregister = register, unregister
+        self._owners: Dict[int, Optional[_Locked]] = {}
+        self._lock = threading.RLock()
+
+    def _lock_owner(self, owner: np.ndarray) -> Optional[_Locked]:
+        if not owner.flags.c_contiguous or owner.nbytes == 0:
+            return None
+        start = owner.ctypes.data
+        ptr = start - start % mmap.PAGESIZE
+        size = -(-(start + owner.nbytes - ptr) // mmap.PAGESIZE) * mmap.PAGESIZE
+        if not self.register(ptr, size):
+            return None
+        tracing.registered(size)
+        return _Locked(ptr)
+
+    def _release(self, key: int) -> None:
+        with self._lock:
+            locked = self._owners.pop(key, None)
+        if locked is not None:
+            self.unregister(locked.ptr, locked.done)
+
+    def lock(self, *arrays: np.ndarray) -> None:
+        """Lock the owners of `arrays` not seen before."""
+        with self._lock:
+            for a in arrays:
+                owner = _owner(a)
+                key = id(owner)
+                if key not in self._owners:
+                    self._owners[key] = self._lock_owner(owner)
+                    weakref.finalize(owner, self._release, key).atexit = False
+
+    def locked(self, *arrays: np.ndarray) -> bool:
+        """Whether every one of `arrays` is C-contiguous and lies in an owner
+        that `lock` locked."""
+        with self._lock:
+            return all(a.flags.c_contiguous and self._owners.get(id(_owner(a))) is not None
+                       for a in arrays)
+
+    def copied(self, device: torch.device, *arrays: np.ndarray) -> None:
+        """Copies from `arrays` were just queued on `device`'s current
+        stream: their owners are released only after them."""
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(device))
+        with self._lock:
+            for a in arrays:
+                locked = self._owners.get(id(_owner(a)))
+                if locked is not None:
+                    locked.done = done
+
+
+# The process's page-locked host arrays.
+PAGE_LOCKS = PageLocks()
 
 
 class Captured:

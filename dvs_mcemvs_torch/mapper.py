@@ -10,10 +10,15 @@ JAX package's `_evaluate_dsi_jit`: the chunk's body (warp and vote) captured
 once in a CUDA graph per `program_key` (the jit's static arguments and the
 input shapes, which `bucket_capacity` keeps few) and replayed for every
 later chunk of that key, one launch from the host.  The chunk's events may
-be host arrays (staged through pinned buffers) or tensors already on the
-card (copied device to device).  `get_depth_map` replays an extraction
-program per `extraction_key` the same way, the counterpart of the jitted
-extraction of `__graft_entry__.entry` and `bench.py`'s `full_chunk`.
+be host arrays or tensors already on the card (copied device to device).
+Host arrays sliced from a stream that the run page-locked in place
+(`page_lock`, once a process) are copied by DMA from the stream's own
+memory, with the float32 time cast and the bucket pad done on the card;
+other host arrays, and those whose memory could not be locked, are
+written into pinned buffers on the host first.
+`get_depth_map` replays an extraction program per `extraction_key` the
+same way, the counterpart of the jitted extraction of
+`__graft_entry__.entry` and `bench.py`'s `full_chunk`.
 Inside `eager()` (the counterpart of `jax.disable_jit()`), and on the CPU,
 the same bodies run eagerly.  The bodies read nothing back from the device:
 the binning's weight checks set a per-device fault flag, which
@@ -27,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -156,7 +161,7 @@ def _stage(events: Events, x: np.ndarray, y: np.ndarray, t: np.ndarray,
     under pad="bucket", w (float32): the tail past the chunk's events holds
     zero-weight events at pixel (0, 0) and the last event's time."""
     n = events.num
-    tracing.staged(n, x.shape[0] - n)
+    tracing.staged(n, x.shape[0] - n, "fill")
     x[:n] = events.x
     x[n:] = 0
     y[:n] = events.y
@@ -182,6 +187,19 @@ def _on_device(events: Events, device: torch.device) -> bool:
     return True
 
 
+def _pad_device(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
+                w: Optional[torch.Tensor], n: int) -> None:
+    """`_stage`'s tail past the chunk's n events, on the buffers' device
+    and the current stream: zero-weight events at pixel (0, 0) and the
+    last event's time."""
+    x[n:].zero_()
+    y[n:].zero_()
+    t[n:].copy_(t[n - 1:n].expand(t.shape[0] - n))
+    if w is not None:
+        w[:n].fill_(1.0)
+        w[n:].zero_()
+
+
 def _stage_device(events: Events, x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
                   w: Optional[torch.Tensor]) -> None:
     """`_stage` of a chunk whose tensors lie on the buffers' device, on the
@@ -190,12 +208,47 @@ def _stage_device(events: Events, x: torch.Tensor, y: torch.Tensor, t: torch.Ten
     tracing.staged(n, x.shape[0] - n)
     for buf, src in ((x, events.x), (y, events.y), (t, events.t)):
         buf[:n].copy_(src, non_blocking=True)
-    x[n:].zero_()
-    y[n:].zero_()
-    t[n:].copy_(t[n - 1:n].expand(t.shape[0] - n))
-    if w is not None:
-        w[:n].fill_(1.0)
-        w[n:].zero_()
+    _pad_device(x, y, t, w, n)
+
+
+def _dma_types(events: Events) -> bool:
+    """Whether the chunk's x, y and t are host arrays of the dtypes that
+    `_stage_dma` copies as they are (int32, int32, float64)."""
+    fields = (events.x, events.y, events.t)
+    return (all(isinstance(f, np.ndarray) for f in fields)
+            and (events.x.dtype, events.y.dtype, events.t.dtype)
+            == (np.int32, np.int32, np.float64))
+
+
+def page_lock(streams: Sequence[Events], device: torch.device) -> None:
+    """Page-lock in place (`graphs.PAGE_LOCKS`, once a process) the host
+    arrays of a run's event streams that `_stage_dma` can copy, where
+    their chunks are voted by programs on `device`."""
+    if graphs.use_programs(device):
+        for ev in streams:
+            if _dma_types(ev):
+                graphs.PAGE_LOCKS.lock(ev.x, ev.y, ev.t)
+
+
+def _dma_ready(events: Events) -> bool:
+    """Whether the chunk's x, y (int32) and t (float64) are host arrays
+    that lie in page-locked memory (`page_lock`)."""
+    return _dma_types(events) and graphs.PAGE_LOCKS.locked(events.x, events.y, events.t)
+
+
+def _stage_dma(events: Events, x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
+               w: Optional[torch.Tensor], t64: torch.Tensor) -> None:
+    """`_stage` of a chunk whose host arrays lie in page-locked memory
+    (`_dma_ready`), on the current stream: x and y copied host to device
+    straight into their buffers, t into the float64 scratch `t64` and cast
+    to float32 on the device (to nearest, as numpy's), then the pad
+    (`_pad_device`).  No host buffer is written."""
+    n = events.num
+    tracing.staged(n, x.shape[0] - n, "dma")
+    for buf, src in ((x, events.x), (y, events.y), (t64, events.t)):
+        buf[:n].copy_(torch.from_numpy(src), non_blocking=True)
+    t[:n].copy_(t64[:n])
+    _pad_device(x, y, t, w, n)
 
 
 class _Body(NamedTuple):
@@ -349,6 +402,7 @@ class Program:
         if weighted:
             self.events.append(torch.zeros(n_static, **f32, device=dev))
         self.staging = graphs.Staging(self.events)
+        self.t64: Optional[torch.Tensor] = None  # `_stage_dma`'s scratch, made on first use
         self.poses = [torch.zeros_like(traj.ts), torch.zeros_like(traj.poses.q),
                       torch.zeros_like(traj.poses.t)]
         self.T_rv_w = [torch.zeros(4, **f32, device=dev), torch.zeros(3, **f32, device=dev)]
@@ -357,16 +411,23 @@ class Program:
 
     def _load(self, events: Events, traj: trajmod.Trajectory, T_rv_w: SE3) -> None:
         """Stage the call's inputs into the static buffers on the current
-        stream: host events through the pinned buffers not in flight, events
-        already on the card by device-to-device copies (the tracer's
-        `vote.stage`)."""
+        stream: events already on the card by device-to-device copies, host
+        arrays in page-locked memory by DMA, other host events through the
+        pinned buffers not in flight (the tracer's `vote.stage`)."""
+        no_w = [None] * (4 - len(self.events))
         with tracing.span("vote.stage", self.device):
             if _on_device(events, self.device):
                 tracing.mark()
-                _stage_device(events, *self.events, *([None] * (4 - len(self.events))))
+                _stage_device(events, *self.events, *no_w)
+            elif _dma_ready(events):
+                if self.t64 is None:
+                    self.t64 = torch.empty(self.events[0].shape[0], dtype=torch.float64,
+                                           device=self.device)
+                tracing.mark()
+                _stage_dma(events, *self.events, *no_w, self.t64)
+                graphs.PAGE_LOCKS.copied(self.device, events.x, events.y, events.t)
             else:
-                self.staging.load(
-                    lambda host: _stage(events, *host, *([None] * (4 - len(host)))))
+                self.staging.load(lambda host: _stage(events, *host, *no_w))
             for dst, src in zip(self.poses, (traj.ts, traj.poses.q, traj.poses.t)):
                 dst.copy_(src)
             self.T_rv_w[0].copy_(T_rv_w.q.reshape(4))
@@ -421,7 +482,9 @@ def evaluate_dsi(
     the trajectory's device; None when the chunk is at most one packet.
     The events may be host arrays, CPU tensors or tensors on the
     trajectory's device (staged there with no host round trip); tensors on
-    another device raise.
+    another device raise.  Host arrays may be read by the card after the
+    call returns (by DMA, `Program._load`): they must not change until the
+    device's work queued so far is done.
 
     `rectify` = "device" recomputes rectification per event; "lut" gathers
     the host LUT.  `pad` = "bucket" pads the events with zero-weight events

@@ -502,7 +502,11 @@ def run_full_seq(
     each chunk a binary-searched slice.  Yields (chunk index, RV time,
     result); a chunk whose `process` raises ValueError (too few events) is
     skipped with a warning.  `skip(k)` is asked before chunk k is computed,
-    so a resumed chunk costs no device work."""
+    so a resumed chunk costs no device work.  The arrays are page-locked in
+    place for the card's programs (`mapper.page_lock`, once a process), so
+    that the chunks sliced from them are copied by DMA; they must not
+    change until the run's device work is done."""
+    mappermod.page_lock(events, trajs[0].device)
     for k, (t0, t1, ts) in enumerate(full_seq_windows(opts)):
         if skip is not None and skip(k):
             log.info("chunk %d @ ts=%.3f already complete; skipped", k, ts)

@@ -33,11 +33,11 @@ a pair of timing events on the current stream that covers the work the
 span queued: the first at the span's first `mark()`, just before its
 device work is queued (`graphs.Staging.load` once the pinned buffers are
 filled; `graphs.Graph.replay`, `graphs.Captured` and the vote's
-device-to-device staging before they queue anything), so that host work
-before it (a fill, on an idle stream) stays out of the interval, though
-on an idle stream the interval still holds the launch call itself (tens
-of microseconds; milliseconds under torch.profiler); the second as the
-span closes.  A span never marked has no interval.  Threads
+device-to-device and DMA stagings before they queue anything), so that
+host work before it (a fill, on an idle stream) stays out of the interval,
+though on an idle stream the interval still holds the launch call itself
+(tens of microseconds; milliseconds under torch.profiler); the second as
+the span closes.  A span never marked has no interval.  Threads
 that share a stream (the save workers share the legacy default stream
 with the main thread) can queue traced work inside another thread's pair,
 so each span's device time is reported exclusive of the traced intervals
@@ -49,8 +49,10 @@ Counters: `graphs.Graph.captures_total` and `replays_total`, the launches
 of `graphs.COUNTED`'s kernel wrappers,
 `graphs.ProgramCache.evictions_total` and `STAGED` (the vote's staged
 events: the chunk's own and the bucket pad's zero-weight ones, counted by
-`staged` once a camera-chunk), each updated under `COUNTS` (exact across
-threads); `snapshot()` reports what they gained since `enable()`.
+`staged` once a camera-chunk; the camera-chunks staged by DMA and by the
+host fill; the host arrays page-locked and their bytes, by `registered`),
+each updated under `COUNTS` (exact across threads); `snapshot()` reports
+what they gained since `enable()`.
 """
 
 from __future__ import annotations
@@ -75,17 +77,32 @@ COUNTS = threading.Lock()
 _held = threading.local()
 
 
-# Events staged for the vote (`mapper._stage`, `mapper._stage_device`):
+# The vote's staging (`mapper._stage`, `_stage_dma`, `_stage_device`):
 # "events", the chunk's own; "pad", the zero-weight events of the bucket
-# pad past them.
-STAGED = {"events": 0, "pad": 0}
+# pad past them; "dma_chunks", the camera-chunks copied by DMA from host
+# arrays page-locked in place (`_stage_dma`); "fill_chunks", those written
+# into pinned or pageable buffers on the host first (`_stage`);
+# "registrations" and "locked_bytes", the host arrays page-locked
+# (`graphs.PageLocks`) and the bytes of their pages.
+STAGED = {"events": 0, "pad": 0, "dma_chunks": 0, "fill_chunks": 0, "registrations": 0,
+          "locked_bytes": 0}
 
 
-def staged(events: int, pad: int) -> None:
-    """Count one staging of `events` events and `pad` pad events."""
+def staged(events: int, pad: int, path: Optional[str] = None) -> None:
+    """Count one staging of `events` events and `pad` pad events, and the
+    camera-chunk under `path` ("dma" or "fill") if given."""
     with COUNTS:
         STAGED["events"] += events
         STAGED["pad"] += pad
+        if path is not None:
+            STAGED[path + "_chunks"] += 1
+
+
+def registered(nbytes: int) -> None:
+    """Count a host array page-locked over `nbytes` bytes."""
+    with COUNTS:
+        STAGED["registrations"] += 1
+        STAGED["locked_bytes"] += nbytes
 
 
 def launched(fn) -> None:
@@ -444,7 +461,8 @@ def snapshot() -> Optional[dict]:
      "by_name": {name: {"count", "host_ms", "device_count",
                         "device_ms" (exclusive)}},
      "counters": {"captures", "replays", "evictions", "launches": {wrapper: n},
-                  "staged": {"events", "pad"}, "waits", "wait_ms"},
+                  "staged": {"events", "pad", "dma_chunks", "fill_chunks",
+                             "registrations", "locked_bytes"}, "waits", "wait_ms"},
      "process_idle_ms", "idle_by_span": {name: ms}, "gaps": [[name, ms]] (the
      longest), "threads": [name], "spans": [[name, thread, depth, start_ns,
      end_ns, device_start_ns, device_end_ns, device_exclusive_ms]]}
@@ -505,8 +523,10 @@ def summary(snap: dict) -> str:
     """One line of `snap` a chunk (its `process` spans): each span's
     device ms (exclusive) and host ms, the device idle inside `process` by
     the span it fell in, the longest gaps, the bucket pad's share of the
-    staged events, and the counters."""
+    staged events, the camera-chunks staged by DMA and by the host fill,
+    the host arrays page-locked, and the counters."""
     n = max(snap["chunks"], 1)
+    staged = snap["counters"]["staged"]
     return (f"{snap['chunks']} chunks; a chunk, device ms: "
             + ", ".join(f"{k} {v['device_ms'] / n:.3f}" for k, v in snap["by_name"].items()
                         if v["device_count"])
@@ -516,7 +536,10 @@ def summary(snap: dict) -> str:
             + ", ".join(f"{k} {v / n:.3f}" for k, v in snap["idle_by_span"].items())
             + "); longest gaps, ms: "
             + ", ".join(f"{name} {ms:.3f}" for name, ms in snap["gaps"])
-            + f"; pad {pad_share(snap['counters']['staged']):.1f} % of the staged events"
+            + f"; pad {pad_share(staged):.1f} % of the staged events"
+            + f"; camera-chunks staged by DMA {staged['dma_chunks']}, by the host fill "
+            + f"{staged['fill_chunks']}; host arrays page-locked {staged['registrations']} "
+            + f"({staged['locked_bytes'] / 1e6:.1f} MB)"
             + f"; counters {json.dumps(snap['counters'])}")
 
 

@@ -116,8 +116,9 @@ def test_spans_nest_per_thread():
 
 def test_counters_are_exact_across_threads():
     """4 threads x 10,000 updates of each counter: kernel launches, program
-    evictions, staged events and pad, and launches held by a capture,
-    which never reach the wrappers' counts."""
+    evictions, staged events and pad, camera-chunks by DMA and by the fill,
+    host arrays page-locked and their bytes, and launches held by a
+    capture, which never reach the wrappers' counts."""
     n, threads = 10_000, 4
     cache = graphs.ProgramCache(1)
 
@@ -129,7 +130,8 @@ def test_counters_are_exact_across_threads():
         for i in range(n):
             tracing.launched(binning.bin_events)
             cache.put(i, Prog())
-            tracing.staged(1, 2)
+            tracing.staged(1, 2, ("dma", "fill")[i % 2])
+            tracing.registered(4096)
         with tracing.held_launches() as held:
             for _ in range(n):
                 tracing.launched(binning.bin_events)
@@ -153,7 +155,10 @@ def test_counters_are_exact_across_threads():
         binning.bin_events.launches, graphs.ProgramCache.evictions_total = counts
         tracing.STAGED.update(staged)
     assert snap["counters"]["launches"]["bin_events"] == threads * n
-    assert snap["counters"]["staged"] == {"events": threads * n, "pad": 2 * threads * n}
+    assert snap["counters"]["staged"] == {
+        "events": threads * n, "pad": 2 * threads * n, "dma_chunks": threads * n // 2,
+        "fill_chunks": threads * n // 2, "registrations": threads * n,
+        "locked_bytes": 4096 * threads * n}
     assert snap["counters"]["evictions"] == threads * (n - 1)
     assert snap["counters"]["captures"] == snap["counters"]["replays"] == 0
 
@@ -166,8 +171,8 @@ def test_counters_are_exact_across_threads():
 ])
 def test_staged_counts_the_events_and_the_bucket_pad(pad, n, want_pad):
     """On the CPU's eager path each camera-chunk counts its events and the
-    bucket pad's zero-weight events once, in the snapshot and the summary
-    line."""
+    bucket pad's zero-weight events once, and one camera-chunk staged by the
+    host fill, in the snapshot and the summary line."""
     from dvs_mcemvs_torch import mapper
 
     mappers, events, trajs = _rig("cpu")
@@ -178,14 +183,44 @@ def test_staged_counts_the_events_and_the_bucket_pad(pad, n, want_pad):
         dsi = mapper.evaluate_dsi(mappers[0], ev, trajs[0], se3.identity(device="cpu"),
                                   packet_size=256, pad=pad)
         assert dsi is not None
-        assert tracing.snapshot()["counters"]["staged"] == {"events": i * n,
-                                                            "pad": i * want_pad}
+        assert tracing.snapshot()["counters"]["staged"] == dict(
+            events=i * n, pad=i * want_pad, dma_chunks=0, fill_chunks=i, registrations=0,
+            locked_bytes=0)
     tracing.disable()
     snap = tracing.snapshot()
-    assert snap["counters"]["staged"] == {"events": 2 * n, "pad": 2 * want_pad}
+    assert snap["counters"]["staged"] == dict(events=2 * n, pad=2 * want_pad, dma_chunks=0,
+                                              fill_chunks=2, registrations=0, locked_bytes=0)
     share = 100.0 * want_pad / (n + want_pad)
     assert tracing.pad_share(snap["counters"]["staged"]) == pytest.approx(share)
-    assert f"; pad {share:.1f} % of the staged events; counters " in tracing.summary(snap)
+    assert (f"; pad {share:.1f} % of the staged events; camera-chunks staged by DMA 0, by "
+            "the host fill 2; host arrays page-locked 0 (0.0 MB); counters "
+            in tracing.summary(snap))
+
+
+def test_staging_counters_reset_at_enable_and_read_in_the_summary():
+    """The staging's counters (camera-chunks by DMA and by the host fill,
+    host arrays page-locked and their bytes) report what they gained since
+    `enable()`, and the summary line reads them."""
+    saved = dict(tracing.STAGED)
+    try:
+        tracing.staged(5, 3, "dma")
+        tracing.staged(5, 3, "fill")
+        tracing.registered(1 << 20)
+        tracing.enable()
+        assert set(tracing.snapshot()["counters"]["staged"].values()) == {0}
+        for path in ("dma", "dma", "fill"):
+            tracing.staged(10, 6, path)
+        tracing.registered(4096)
+        tracing.registered(2_500_000 - 4096)
+        tracing.staged(4, 0)
+        tracing.disable()
+        snap = tracing.snapshot()
+    finally:
+        tracing.STAGED.update(saved)
+    assert snap["counters"]["staged"] == dict(events=34, pad=18, dma_chunks=2, fill_chunks=1,
+                                              registrations=2, locked_bytes=2_500_000)
+    assert ("; camera-chunks staged by DMA 2, by the host fill 1; host arrays page-locked 2 "
+            "(2.5 MB); counters " in tracing.summary(snap))
 
 
 @pytest.mark.parametrize("intervals,want", [
@@ -315,12 +350,16 @@ def test_device_intervals_share_the_host_clock():
       a card already idle, the host's call that launched the graph (the
       event runs as it is queued, and under the profiler that call takes
       milliseconds before the graph's first kernel).  Where the card was
-      busy, that is also within 50 us of the graph's first kernel, which
-      holds for both votes of every other chunk: a spin of the card queued
-      before those chunks (`BUSY_CYCLES`) keeps it busy while the host
-      launches the chunk's programs, since a camera's vote kernel alone ends
-      before the host launches the next camera's; the chunks between start
-      on an idle card, so both kinds of start are checked.  The profiler's
+      still busy as the call that queued the vote's first operation (a copy
+      of its events, or the graph) returned, that is also within 50 us of
+      that operation, which holds for both votes of every other chunk: a
+      spin of the card queued before those chunks (`BUSY_CYCLES`) keeps it
+      busy while the host launches the chunk's programs.  A card that frees
+      up while that call runs (under the profiler a copy's call can take a
+      millisecond) starts the operation only as the call returns, so such a
+      vote is held to its start alone.  The chunks between start on an idle
+      card, or one that frees up within a few hundred microseconds, so both
+      kinds of start are checked.  The profiler's
       device stamps drift
       against its own host stamps, by an amount that differs from one
       profile to the next, so a line fitted to the end offsets is taken off
@@ -379,33 +418,41 @@ def test_device_intervals_share_the_host_clock():
     for e in kineto:
         if e.device_type() == DeviceType.CUDA:
             ops.setdefault(e.correlation_id(), []).append((e.start_ns(), e.end_ns()))
-    calls = [(e.start_ns(), e.correlation_id()) for e in kineto
+    calls = [(e.start_ns(), e.end_ns(), e.correlation_id()) for e in kineto
              if e.device_type() == DeviceType.CPU and e.name().startswith("cu")
              and e.correlation_id() in ops]
     assert calls, "the profile links no launch to a device operation"
     every = sorted(x for v in ops.values() for x in v)
     reach = np.maximum.accumulate([e for _, e in every])   # latest end so far
-    t, first, last, before, launch, d0s = [], [], [], [], [], []
+    t, first, last, before, launch, queued, d0s = [], [], [], [], [], [], []
     for _, _, _, start, end, d0, d1, _ in votes[2 * n:]:
-        mine = sorted((c0, x) for c0, c in calls if start <= c0 <= end for x in ops[c])
+        mine = sorted((c0, c1, x) for c0, c1, c in calls if start <= c0 <= end
+                      for x in ops[c])
         assert mine, f"no operation launched in [{start}, {end}]"
-        k = bisect.bisect_left(every, mine[0][1]) - 1
+        k = bisect.bisect_left(every, mine[0][2]) - 1
         t.append((d1 - votes[2 * n][6]) / 1e9)
-        first.append(mine[0][1][0])
-        last.append(max(e for _, (_, e) in mine) - d1)
+        first.append(mine[0][2][0])
+        last.append(max(e for _, _, (_, e) in mine) - d1)
         before.append(reach[k] if k >= 0 else -np.inf)
         launch.append(mine[0][0])
+        queued.append(mine[0][1])
         d0s.append(d0)
     slope, offset = np.polyfit(t, last, 1)
     drift = slope * np.asarray(t) + offset
     ends = np.asarray(last) - drift
     first, before = np.asarray(first) - drift, np.asarray(before) - drift
     busy = before > np.asarray(launch)
+    # Still busy as the call that queued the first operation returned.
+    held = before > np.asarray(queued)
     starts = np.asarray(d0s) - np.where(busy, before, launch)
     print(json.dumps({"sync_end_minus_vote_end_us": [round(w / 1e3, 1) for w in wake],
                       "start_end_offsets_us": [[round(a / 1e3, 1), round(b / 1e3, 1)]
                                                for a, b in zip(starts, ends)],
                       "card_busy": busy.tolist(),
+                      "busy_past_launch_us": [round(x / 1e3, 1) if np.isfinite(x) else None
+                                              for x in before - np.asarray(launch)],
+                      "busy_past_queued_us": [round(x / 1e3, 1) if np.isfinite(x) else None
+                                              for x in before - np.asarray(queued)],
                       "first_kernel_minus_start_us": [round(x / 1e3, 1)
                                                       for x in first - np.asarray(d0s)],
                       "profile_drift_ppm": slope / 1e3,
@@ -413,4 +460,5 @@ def test_device_intervals_share_the_host_clock():
     assert len(wake) >= n and min(wake) <= tol, wake
     assert np.all(np.abs(starts) <= tol) and np.all(np.abs(ends) <= tol), (starts, ends)
     assert busy.sum() >= n and (~busy).sum() >= 1, busy
-    assert np.all(np.abs(first - np.asarray(d0s))[busy] <= tol), first - np.asarray(d0s)
+    assert held.sum() >= n, held
+    assert np.all(np.abs(first - np.asarray(d0s))[held] <= tol), first - np.asarray(d0s)

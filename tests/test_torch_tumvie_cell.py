@@ -43,9 +43,12 @@ def test_cell_matches_the_reference_and_counts_the_pad(per_window):
         assert row["maps_off"] < 0.02, row
     assert out.result["correct"] is True, out.result["check"]
     # Every camera-chunk, the warm-up's pass over the 28 windows and the
-    # window's, staged the window's events and the pad up to the bucket.
+    # window's, staged the window's events and the pad up to the bucket, by the
+    # host fill (the eager path of the CPU).
     camera_chunks = 2 * (28 + out.result["attempted"])
     bucket = mapper.bucket_capacity(per_window, packet)
     assert bucket == 16 * packet
     assert snap["counters"]["staged"] == {"events": camera_chunks * per_window,
-                                          "pad": camera_chunks * (bucket - per_window)}
+                                          "pad": camera_chunks * (bucket - per_window),
+                                          "dma_chunks": 0, "fill_chunks": camera_chunks,
+                                          "registrations": 0, "locked_bytes": 0}

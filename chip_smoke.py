@@ -2671,13 +2671,13 @@ def refused_weights_step(dev, workload, spec=I8_SPEC) -> str:
     chunk does not.  Returns the message."""
     from dvs_mcemvs_torch import mapper as mappermod
 
-    real = mappermod._stage_weights
+    real = mappermod._pad_device
 
-    def refused(w, n):
-        real(w, n)
+    def refused(x, y, t, w, n):
+        real(x, y, t, w, n)
         w[n // 2] = 1.5
 
-    mappermod._stage_weights = refused
+    mappermod._pad_device = refused
     try:
         run_chunk(workload, spec)
     except ValueError as e:
@@ -2685,7 +2685,7 @@ def refused_weights_step(dev, workload, spec=I8_SPEC) -> str:
     else:
         raise AssertionError("a chunk of refused weights gave a depth map")
     finally:
-        mappermod._stage_weights = real
+        mappermod._pad_device = real
     run_chunk(workload, spec)
     log(f"  refused weights under {spec}: raised {message!r}; the next chunk ran clean")
     return message
@@ -2723,8 +2723,9 @@ def program_timing_step(dev, workload, spec=HEADLINE_SPEC, runs=PROGRAM_RUNS) ->
             prof.report(res, f"  profiled {mode} chunk", top=8, log=log)
             out[f"{mode}_idle_share"] = res["idle_share"]
             out[f"{mode}_profile"] = res
-        prog = [p for p in mappermod.programs() if p.body.backend == spec][-1]
-        dsi = prog.graph.out
+        prog = [p for key, p in zip(mappermod._PROGRAMS.keys(), mappermod.programs())
+                if key[1].backend == spec][-1]
+        dsi = prog.graphs[0].out
         copy_ms = cuda_graph_ms(lambda: dsi.clone())
         wm = work_model()
         log(f"  the output copy of one camera's DSI ({_gib(wm.nbytes(dsi)) * 1024:.1f} MiB): "
@@ -2748,11 +2749,11 @@ def program_call_parts(dev, workload, prog, runs=5) -> dict:
     for _ in range(runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prog._load(events[0], trajs[0], T_rv_w)
+        prog.load(events[0], trajs[0], T_rv_w)
         stage_s.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
         start.record()
-        prog.graph.replay()
+        prog.graphs[0].replay()
         end.record()
         end.synchronize()
         replay_ms.append(start.elapsed_time(end))
@@ -3021,7 +3022,7 @@ def device_events_step(dev, workload, spec=HEADLINE_SPEC, runs=5) -> dict:
                 torch.cuda.synchronize()
                 start.record()
                 t_0 = time.perf_counter()
-                prog._load(ev, trajs[0], T_rv_w)
+                prog.load(ev, trajs[0], T_rv_w)
                 parts[where].append(1e3 * (time.perf_counter() - t_0))
                 end.record()
                 end.synchronize()
@@ -3089,9 +3090,14 @@ def whole_chunk_phase(dev, workload, kernels: dict, timing: dict, specs=WHOLE_SP
             f"eager {launches['eager']}; idle share {timing['programs_idle_share']:.3f} / "
             f"{timing['eager_idle_share']:.3f}; seconds {timing['programs']:.6f} / "
             f"{timing['eager']:.6f}")
-        if launches["programs"] != chunk_graphs(len(workload[1])):
+        # Besides its graphs, the staging launches the bucket pad's weight
+        # fill on the card (`mapper._pad_device`), one a camera; the
+        # workload's chunks lie on a bucket edge, so nothing else is padded.
+        n_cams = len(workload[1])
+        if launches["programs"] != chunk_graphs(n_cams) + n_cams:
             raise AssertionError(f"a chunk on programs made {launches['programs']} launch "
-                                 f"calls, not its {chunk_graphs(len(workload[1]))} graphs")
+                                 f"calls, not its {chunk_graphs(n_cams)} graphs and "
+                                 f"{n_cams} weight fills")
         out["launches"] = launches
     fused = run_chunk(workload, spec)[0].fused_dsi
     out["extraction"] = extraction_programs_step(dev, workload, fused, spec, dim_z)

@@ -1,22 +1,23 @@
-"""CUDA-graph programs: the machinery that the chunk programs
-(`mapper.evaluate_dsi`), the whole-chunk programs (`mapper.get_depth_map`'s
-extraction, `pipeline`'s fusion and temporal steps) and the sharded step
-programs (`parallel.sharded`) share, the counterpart of the JAX package's
-`jax.jit`.
+"""CUDA-graph programs: the one program class, `Captured`, that the chunk
+programs (`mapper.evaluate_dsi`), the whole-chunk programs
+(`mapper.get_depth_map`'s extraction, `pipeline`'s fusion and temporal
+steps) and the sharded step programs (`parallel.sharded`) share, the
+counterpart of the JAX package's `jax.jit`.
 
 A program owns a body's static inputs on the card and the CUDA graphs
 captured from it.  `Graph` captures a function once into the device's one
 memory pool, and each replay adds the kernel launches its capture recorded;
 `warm_up` runs the body eagerly on a side stream before the first capture
-(building the kernels, filling the plan and table caches); `Staging` moves a
-call's host arrays into static buffers through two pinned buffers used in
-turn; `PageLocks` page-locks in place the host arrays that a run slices its
+(building the kernels, filling the plan and table caches); `Staging` moves
+host arrays into static buffers through two pinned buffers used in turn;
+`PageLocks` page-locks in place the host arrays that a run slices its
 chunks from, once a process, so that a chunk is copied to the card by DMA
-with no copy on the host; `Captured` is the program of a body over static
-device tensors (the caller's tensors copied in on the card, fresh copies
-of the result out); `ProgramCache` keeps the programs of a kind, dropping
-the least recently used.  `eager()` turns every program off on its thread
-(the counterpart of `jax.disable_jit()`).
+with no copy on the host; `Captured` loads a call's arguments (its tensors
+copied in, or a load of its own that stages host arrays), replays its
+graphs with any `Eager` segments between them, and returns fresh copies
+of the result; `ProgramCache` keeps the programs of a kind, dropping the
+least recently used.  `eager()` turns every program off on its thread (the
+counterpart of `jax.disable_jit()`).
 
 A body reads nothing back from the card: the binning's weight checks set a
 per-device fault flag (`fault_flag`), which `check_faults` reads once a
@@ -37,7 +38,7 @@ import contextlib
 import mmap
 import threading
 import weakref
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -162,14 +163,14 @@ class ProgramCache:
         while self._items:
             self._items.popitem(last=False)[1].close()
 
-    def call(self, key, make: Callable[[], "Captured"], *tensors):
-        """The program of `key` called on `tensors`, made by `make()` on
-        first use; a program whose first call raises is not kept."""
+    def call(self, key, make: Callable[[], "Captured"], *args):
+        """The program of `key` called on `args`, made by `make()` on first
+        use; a program whose first call raises is not kept."""
         prog = self.get(key)
         if prog is not None:
-            return prog(*tensors)
+            return prog(*args)
         prog = make()
-        out = prog(*tensors)
+        out = prog(*args)
         self.put(key, prog)
         return out
 
@@ -283,13 +284,15 @@ class Graph:
         with tracing.COUNTS:
             Graph.captures_total += 1
 
-    def replay(self) -> None:
+    def replay(self):
+        """Replay on the current stream; returns `out`."""
         tracing.mark()
         self.graph.replay()
         with tracing.COUNTS:
             Graph.replays_total += 1
             for f, n in self.launches.items():
                 f.launches += n
+        return self.out
 
 
 class Staging:
@@ -304,9 +307,10 @@ class Staging:
         self.copied = [None, None]  # the event after each set's copies
         self.loads = 0
 
-    def load(self, fill: Callable[[List[np.ndarray]], None]) -> None:
-        """fill(host) writes the call's data into `host`, numpy views of one
-        pinned set; then its copies into the buffers are queued."""
+    def load(self, arrays: Sequence) -> None:
+        """Write each of `arrays` into the first `len(a)` entries of its
+        buffer's pinned twin (numpy casting), then queue the copies of
+        those entries into the buffers."""
         if self.host is None:
             self.host = [[torch.empty(b.shape, dtype=b.dtype, pin_memory=True)
                           for b in self.buffers] for _ in range(2)]
@@ -316,10 +320,11 @@ class Staging:
             with tracing.span("wait.staging"):
                 self.copied[slot].synchronize()
         host = self.host[slot]
-        fill([h.numpy() for h in host])
+        for h, a in zip(host, arrays):
+            h.numpy()[:len(a)] = a
         tracing.mark()
-        for dst, src in zip(self.buffers, host):
-            dst.copy_(src, non_blocking=True)
+        for dst, src, a in zip(self.buffers, host, arrays):
+            dst[:len(a)].copy_(src[:len(a)], non_blocking=True)
         self.copied[slot] = torch.cuda.Event()
         self.copied[slot].record()
 
@@ -457,48 +462,83 @@ class PageLocks:
 PAGE_LOCKS = PageLocks()
 
 
+class Eager(NamedTuple):
+    """A segment of a program's body that runs eagerly between two replays
+    (a collective: gloo cannot be captured)."""
+
+    run: Callable
+
+    def __call__(self):
+        return self.run()
+
+
 class Captured:
-    """body() captured in one CUDA graph on `device`, over the static
-    tensors `inputs` that it reads (allocated by the caller, outside the
-    graphs' pool, so that no replay's temporaries overwrite them).
+    """A body captured in CUDA graphs on `device`, over the static tensors
+    `inputs` that it reads (allocated by the caller, outside the graphs'
+    pool, so that no replay's temporaries overwrite them).  The body is a
+    callable, or a list of segments run in order: each callable one
+    `Graph`, each `Eager` one run between the replays; a run's result is
+    the last segment's.
 
-    A call copies its tensors into `inputs` on the current stream (device
-    to device, or host to device for CPU tensors), then on first use runs
-    the body eagerly (`warm_up`) and captures it, or replays the graph;
-    it returns fresh copies of the result (`fresh_out=False`: the graph's
-    own output, valid until this thread replays another graph of the
-    device).  A body that cannot be captured raises.  `kind` names the
-    tracer's spans of the program's calls (`replay.<kind>`,
-    `capture.<kind>`)."""
+    A call loads its arguments on the current stream (`load(*args)`, else
+    its tensors copied into `inputs`), then on first use runs the whole
+    body eagerly (`warm_up`) and captures it, or replays the graphs; it
+    returns fresh copies of the result (`fresh_out=False`: the graphs' own
+    output, valid until this thread replays another graph of the device).
+    A body that cannot be captured raises.  `kind` names the tracer's
+    spans: `capture.<kind>`, the first call (`capture_s` is its length),
+    and `replay.<kind>`, a later one; a load of its own runs inside the
+    first and before the second, the default copies the other way round."""
 
-    def __init__(self, device: torch.device, inputs: List[torch.Tensor], body: Callable,
-                 kind: str = "program"):
-        self.device, self.inputs, self.body = device, list(inputs), body
-        self.graph: Optional[Graph] = None
+    def __init__(self, device: torch.device, inputs: List[torch.Tensor], body,
+                 kind: str = "program", load: Optional[Callable] = None):
+        self.device, self.inputs, self.load = device, list(inputs), load
+        self.segments = body if isinstance(body, list) else [body]
+        self.graphs: List[Graph] = []
         self.capture_s = 0.0
         self.spans = ("replay." + kind, "capture." + kind)
 
-    def __call__(self, *tensors: torch.Tensor, fresh_out: bool = True):
+    def _copy_in(self, tensors) -> None:
         if len(tensors) != len(self.inputs):
             raise ValueError(f"{len(tensors)} tensors for {len(self.inputs)} static inputs")
-        if self.graph is None:
-            for dst, src in zip(self.inputs, tensors):
-                dst.copy_(src, non_blocking=True)
+        for dst, src in zip(self.inputs, tensors):
+            dst.copy_(src, non_blocking=True)
+
+    def _run(self, replay: bool = False):
+        """The segments in order, the captured ones replayed where `replay`
+        (else every one run eagerly); the last one's result."""
+        replays = iter(self.graphs)
+        for seg in self.segments:
+            if replay and not isinstance(seg, Eager):
+                out = next(replays).replay()
+            else:
+                out = seg()
+        return out
+
+    def __call__(self, *args, fresh_out: bool = True):
+        if not self.graphs:
+            if self.load is None:
+                self._copy_in(args)
             with tracing.timed(self.spans[1]) as sp:
+                if self.load is not None:
+                    self.load(*args)
                 flag = fault_flag(self.device)
-                out = warm_up(self.device, self.body, flag)
-                self.graph = Graph(self.device, self.body, flag)
+                out = warm_up(self.device, self._run, flag)
+                self.graphs = [Graph(self.device, seg, flag) for seg in self.segments
+                               if not isinstance(seg, Eager)]
             self.capture_s = sp.seconds
             return out
+        if self.load is not None:
+            self.load(*args)
         with tracing.span(self.spans[0], self.device):
             tracing.mark()
-            for dst, src in zip(self.inputs, tensors):
-                dst.copy_(src, non_blocking=True)
-            self.graph.replay()
-            return fresh(self.graph.out) if fresh_out else self.graph.out
+            if self.load is None:
+                self._copy_in(args)
+            out = self._run(replay=True)
+            return fresh(out) if fresh_out else out
 
     def close(self) -> None:
-        """Drop the graph once the card is done with it."""
-        if self.graph is not None:
+        """Drop the graphs once the card is done with them."""
+        if self.graphs:
             torch.cuda.synchronize(self.device)
-        self.graph = None
+        self.graphs = []

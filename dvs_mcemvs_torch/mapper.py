@@ -5,17 +5,16 @@ camera, rectification LUT, depth planes) whose `evaluate_dsi` turns a chunk
 of events into a fresh (Z, H, W) DSI on the device of the trajectory, and
 `get_pointcloud`, which turns a depth map into a filtered point cloud.
 
-On a CUDA device `evaluate_dsi` runs a *program*, the counterpart of the
-JAX package's `_evaluate_dsi_jit`: the chunk's body (warp and vote) captured
-once in a CUDA graph per `program_key` (the jit's static arguments and the
-input shapes, which `bucket_capacity` keeps few) and replayed for every
-later chunk of that key, one launch from the host.  The chunk's events may
-be host arrays or tensors already on the card (copied device to device).
-Host arrays sliced from a stream that the run page-locked in place
-(`page_lock`, once a process) are copied by DMA from the stream's own
-memory, with the float32 time cast and the bucket pad done on the card;
-other host arrays, and those whose memory could not be locked, are
-written into pinned buffers on the host first.
+On a CUDA device `evaluate_dsi` runs a *program* (`graphs.Captured`), the
+counterpart of the JAX package's `_evaluate_dsi_jit`: the chunk's body
+(warp and vote) captured once in a CUDA graph per `program_key` (the jit's
+static arguments and the input shapes, which `bucket_capacity` keeps few)
+and replayed for every later chunk of that key, one launch from the host.
+Every path stages a chunk by `_stage`: tensors on the card device to
+device; host arrays sliced from a stream that the run page-locked in place
+(`page_lock`) by DMA, the float32 time cast on the card; other host arrays
+cast on the host, through a program's pinned buffers or plainly; then the
+bucket pad, always on the buffers' device.
 `get_depth_map` replays an extraction program per `extraction_key` the
 same way, the counterpart of the jitted extraction of
 `__graft_entry__.entry` and `bench.py`'s `full_chunk`.
@@ -148,30 +147,6 @@ def _n_static(n: int, packet_size: int, pad: str) -> int:
     return n
 
 
-def _stage_weights(w: np.ndarray, n: int) -> None:
-    """The bucket pad's per-event weights: 1 for the chunk's n events, 0 for
-    the padding."""
-    w[:n] = 1.0
-    w[n:] = 0.0
-
-
-def _stage(events: Events, x: np.ndarray, y: np.ndarray, t: np.ndarray,
-           w: Optional[np.ndarray]) -> None:
-    """Write the chunk into the host buffers x, y (int32), t (float32) and,
-    under pad="bucket", w (float32): the tail past the chunk's events holds
-    zero-weight events at pixel (0, 0) and the last event's time."""
-    n = events.num
-    tracing.staged(n, x.shape[0] - n, "fill")
-    x[:n] = events.x
-    x[n:] = 0
-    y[:n] = events.y
-    y[n:] = 0
-    t[:n] = events.t
-    t[n:] = t[n - 1]
-    if w is not None:
-        _stage_weights(w, n)
-
-
 def _on_device(events: Events, device: torch.device) -> bool:
     """Whether the chunk's x, y, t are tensors on `device` (staged there,
     device to device); False for host arrays and CPU tensors (staged through
@@ -189,9 +164,9 @@ def _on_device(events: Events, device: torch.device) -> bool:
 
 def _pad_device(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
                 w: Optional[torch.Tensor], n: int) -> None:
-    """`_stage`'s tail past the chunk's n events, on the buffers' device
-    and the current stream: zero-weight events at pixel (0, 0) and the
-    last event's time."""
+    """The bucket pad past the chunk's n events, on the buffers' device and
+    the current stream: zero-weight events (w: 1 up to n) at pixel (0, 0)
+    and the last event's time."""
     x[n:].zero_()
     y[n:].zero_()
     t[n:].copy_(t[n - 1:n].expand(t.shape[0] - n))
@@ -200,20 +175,9 @@ def _pad_device(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
         w[n:].zero_()
 
 
-def _stage_device(events: Events, x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
-                  w: Optional[torch.Tensor]) -> None:
-    """`_stage` of a chunk whose tensors lie on the buffers' device, on the
-    current stream: device-to-device copies and fills, no host round trip."""
-    n = events.num
-    tracing.staged(n, x.shape[0] - n)
-    for buf, src in ((x, events.x), (y, events.y), (t, events.t)):
-        buf[:n].copy_(src, non_blocking=True)
-    _pad_device(x, y, t, w, n)
-
-
 def _dma_types(events: Events) -> bool:
     """Whether the chunk's x, y and t are host arrays of the dtypes that
-    `_stage_dma` copies as they are (int32, int32, float64)."""
+    `_stage` copies by DMA as they are (int32, int32, float64)."""
     fields = (events.x, events.y, events.t)
     return (all(isinstance(f, np.ndarray) for f in fields)
             and (events.x.dtype, events.y.dtype, events.t.dtype)
@@ -222,7 +186,7 @@ def _dma_types(events: Events) -> bool:
 
 def page_lock(streams: Sequence[Events], device: torch.device) -> None:
     """Page-lock in place (`graphs.PAGE_LOCKS`, once a process) the host
-    arrays of a run's event streams that `_stage_dma` can copy, where
+    arrays of a run's event streams that `_stage` can copy by DMA, where
     their chunks are voted by programs on `device`."""
     if graphs.use_programs(device):
         for ev in streams:
@@ -230,25 +194,43 @@ def page_lock(streams: Sequence[Events], device: torch.device) -> None:
                 graphs.PAGE_LOCKS.lock(ev.x, ev.y, ev.t)
 
 
-def _dma_ready(events: Events) -> bool:
-    """Whether the chunk's x, y (int32) and t (float64) are host arrays
-    that lie in page-locked memory (`page_lock`)."""
-    return _dma_types(events) and graphs.PAGE_LOCKS.locked(events.x, events.y, events.t)
-
-
-def _stage_dma(events: Events, x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
-               w: Optional[torch.Tensor], t64: torch.Tensor) -> None:
-    """`_stage` of a chunk whose host arrays lie in page-locked memory
-    (`_dma_ready`), on the current stream: x and y copied host to device
-    straight into their buffers, t into the float64 scratch `t64` and cast
-    to float32 on the device (to nearest, as numpy's), then the pad
-    (`_pad_device`).  No host buffer is written."""
-    n = events.num
-    tracing.staged(n, x.shape[0] - n, "dma")
-    for buf, src in ((x, events.x), (y, events.y), (t64, events.t)):
-        buf[:n].copy_(torch.from_numpy(src), non_blocking=True)
-    t[:n].copy_(t64[:n])
+def _stage(events: Events, bufs: Sequence[Optional[torch.Tensor]],
+           staging: Optional[graphs.Staging] = None) -> None:
+    """Write the chunk into `bufs` (x, y int32, t float32 and, under
+    pad="bucket", w float32, else None) on their device and the current
+    stream, by its source: tensors on that device, device to device; int32,
+    int32, float64 host arrays in page-locked memory (`page_lock`), by DMA,
+    t into a float64 scratch cast on the device (to nearest, as numpy's);
+    other host arrays, cast by numpy on the host, through `staging`'s
+    pinned set not in flight where a program has one, else plainly.  Then
+    the bucket pad (`_pad_device`).  The tracer counts the camera-chunk
+    under "dma" or "fill" (`tracing.staged`)."""
+    x, y, t, w = bufs
+    n, dev = events.num, x.device
+    srcs = (events.x, events.y, events.t)
+    path = "fill"
+    if _on_device(events, dev):
+        path = None
+        tracing.mark()
+        for buf, src in zip((x, y, t), srcs):
+            buf[:n].copy_(src, non_blocking=True)
+    elif _dma_types(events) and graphs.PAGE_LOCKS.locked(*srcs):
+        path = "dma"
+        t64 = torch.empty(x.shape[0], dtype=torch.float64, device=dev)
+        tracing.mark()
+        for buf, src in zip((x, y, t64), srcs):
+            buf[:n].copy_(torch.from_numpy(src), non_blocking=True)
+        t[:n].copy_(t64[:n])
+    elif staging is not None:
+        staging.load(srcs)
+    else:
+        for buf, src, dtype in zip((x, y, t), srcs, (np.int32, np.int32, np.float32)):
+            buf[:n].copy_(torch.from_numpy(np.asarray(src, dtype)))
+    tracing.staged(n, x.shape[0] - n, path)
     _pad_device(x, y, t, w, n)
+    if path == "dma":
+        # The run's arrays are released only after the copies from them.
+        graphs.PAGE_LOCKS.copied(dev, *srcs)
 
 
 class _Body(NamedTuple):
@@ -314,22 +296,20 @@ def _vote(body: _Body, c: _Constants, x, y, t, w, traj: trajmod.Trajectory,
               plane_block=body.plane_block)
 
 
-def _host_events(events: Events, packet_size: int, pad: str, device):
-    """The chunk as tensors on `device` (x, y, t, w or None): the eager
-    path's staging, from pageable host buffers, or on the device where the
-    chunk's tensors already lie there."""
-    n = _n_static(events.num, packet_size, pad)
-    if _on_device(events, device):
-        i32, f32 = dict(dtype=torch.int32, device=device), dict(dtype=torch.float32,
-                                                                 device=device)
-        bufs = (torch.empty(n, **i32), torch.empty(n, **i32), torch.empty(n, **f32),
-                torch.empty(n, **f32) if pad == "bucket" else None)
-        _stage_device(events, *bufs)
-        return bufs
-    bufs = (np.empty(n, np.int32), np.empty(n, np.int32), np.empty(n, np.float32),
-            np.empty(n, np.float32) if pad == "bucket" else None)
-    _stage(events, *bufs)
-    return tuple(None if b is None else torch.as_tensor(b, device=device) for b in bufs)
+def _event_buffers(n: int, weighted: bool, device) -> list:
+    """Buffers that `_stage` writes a chunk of n events into: x, y
+    (int32), t (float32) and w (float32) where `weighted`, else None."""
+    i32, f32 = dict(dtype=torch.int32, device=device), dict(dtype=torch.float32, device=device)
+    return [torch.empty(n, **i32), torch.empty(n, **i32), torch.empty(n, **f32),
+            torch.empty(n, **f32) if weighted else None]
+
+
+def _device_events(events: Events, packet_size: int, pad: str, device) -> list:
+    """The chunk staged into fresh buffers on `device` (x, y, t, w or
+    None): the eager path's inputs."""
+    bufs = _event_buffers(_n_static(events.num, packet_size, pad), pad == "bucket", device)
+    _stage(events, bufs)
+    return bufs
 
 
 def warp_chunk(
@@ -346,7 +326,7 @@ def warp_chunk(
     `rectify` and `pad` as in `evaluate_dsi`."""
     body = _setup(mapper, packet_size, "", 0, rectify)
     c = _constants(mapper, body, traj.device)
-    x, y, t, w = _host_events(events, packet_size, pad, traj.device)
+    x, y, t, w = _device_events(events, packet_size, pad, traj.device)
     return _warp(body, c, x, y, t, w, traj, T_rv_w), c.depths, body.z0
 
 
@@ -380,91 +360,37 @@ def programs() -> list:
     return _PROGRAMS.values()
 
 
-class Program:
-    """The body for one key, captured in a CUDA graph (`graphs.Graph`).
+def _program(mapper: Mapper, body: _Body, n_static: int, weighted: bool,
+             traj: trajmod.Trajectory) -> graphs.Captured:
+    """The vote program of one key (kind "vote"): static event buffers (x,
+    y, t and, where `weighted`, w: first), poses and T_rv_w; its load
+    stages a call's chunk (`_stage`, through a `graphs.Staging`) and copies
+    the poses inside the tracer's `vote.stage`; its body is `_vote`."""
+    dev = traj.device
+    c = _constants(mapper, body, dev)
+    events = _event_buffers(n_static, weighted, dev)
+    staging = graphs.Staging(events[:3])
+    poses = [torch.zeros_like(traj.ts), torch.zeros_like(traj.poses.q),
+             torch.zeros_like(traj.poses.t)]
+    T_rv_w = [torch.zeros(4, dtype=torch.float32, device=dev),
+              torch.zeros(3, dtype=torch.float32, device=dev)]
 
-    It owns the body's static inputs on the card (events, weights, poses,
-    T_rv_w), the mapper's constants, the pinned buffers the events are
-    staged through (`graphs.Staging`), and the graph with its output."""
-
-    def __init__(self, key: tuple, mapper: Mapper, body: _Body, n_static: int,
-                 weighted: bool, traj: trajmod.Trajectory):
-        dev = traj.device
-        self.key, self.body, self.device = key, body, dev
-        self.constants = _constants(mapper, body, dev)
-        # The key holds the ids of the pose buffer (and the LUT): keep them
-        # alive, so that no other object takes those ids while this lives.
-        self._pinned_ids = (traj.poses.t, mapper.lut)
-        i32, f32 = dict(dtype=torch.int32), dict(dtype=torch.float32)
-        self.events = [torch.zeros(n_static, **i32, device=dev),
-                       torch.zeros(n_static, **i32, device=dev),
-                       torch.zeros(n_static, **f32, device=dev)]
-        if weighted:
-            self.events.append(torch.zeros(n_static, **f32, device=dev))
-        self.staging = graphs.Staging(self.events)
-        self.t64: Optional[torch.Tensor] = None  # `_stage_dma`'s scratch, made on first use
-        self.poses = [torch.zeros_like(traj.ts), torch.zeros_like(traj.poses.q),
-                      torch.zeros_like(traj.poses.t)]
-        self.T_rv_w = [torch.zeros(4, **f32, device=dev), torch.zeros(3, **f32, device=dev)]
-        self.graph: Optional[graphs.Graph] = None
-        self.capture_s = 0.0
-
-    def _load(self, events: Events, traj: trajmod.Trajectory, T_rv_w: SE3) -> None:
-        """Stage the call's inputs into the static buffers on the current
-        stream: events already on the card by device-to-device copies, host
-        arrays in page-locked memory by DMA, other host events through the
-        pinned buffers not in flight (the tracer's `vote.stage`)."""
-        no_w = [None] * (4 - len(self.events))
-        with tracing.span("vote.stage", self.device):
-            if _on_device(events, self.device):
-                tracing.mark()
-                _stage_device(events, *self.events, *no_w)
-            elif _dma_ready(events):
-                if self.t64 is None:
-                    self.t64 = torch.empty(self.events[0].shape[0], dtype=torch.float64,
-                                           device=self.device)
-                tracing.mark()
-                _stage_dma(events, *self.events, *no_w, self.t64)
-                graphs.PAGE_LOCKS.copied(self.device, events.x, events.y, events.t)
-            else:
-                self.staging.load(lambda host: _stage(events, *host, *no_w))
-            for dst, src in zip(self.poses, (traj.ts, traj.poses.q, traj.poses.t)):
+    # The key holds the ids of the pose buffer (and the LUT): the load keeps
+    # them alive (`_held`), so that no other object takes those ids while
+    # the program lives.
+    def load(ev: Events, trj: trajmod.Trajectory, T: SE3,
+             _held=(traj.poses.t, mapper.lut)) -> None:
+        with tracing.span("vote.stage", dev):
+            _stage(ev, events, staging)
+            for dst, src in zip(poses, (trj.ts, trj.poses.q, trj.poses.t)):
                 dst.copy_(src)
-            self.T_rv_w[0].copy_(T_rv_w.q.reshape(4))
-            self.T_rv_w[1].copy_(T_rv_w.t.reshape(3))
+            T_rv_w[0].copy_(T.q.reshape(4))
+            T_rv_w[1].copy_(T.t.reshape(3))
 
-    def _run(self) -> torch.Tensor:
-        x, y, t = self.events[:3]
-        w = self.events[3] if len(self.events) > 3 else None
-        traj = trajmod.Trajectory(self.poses[0], SE3(self.poses[1], self.poses[2]))
-        return _vote(self.body, self.constants, x, y, t, w, traj, SE3(*self.T_rv_w))
-
-    def capture(self, events: Events, traj: trajmod.Trajectory, T_rv_w: SE3,
-                flag: torch.Tensor) -> torch.Tensor:
-        """First use: stage the inputs, run the body eagerly
-        (`graphs.warm_up`), then capture it.  Returns the eager run's DSI;
-        the counts of its launches stand.  `capture_s` is the length of the
-        tracer's `capture.vote` span."""
-        with tracing.timed("capture.vote") as sp:
-            self._load(events, traj, T_rv_w)
-            dsi = graphs.warm_up(self.device, self._run, flag)
-            self.graph = graphs.Graph(self.device, self._run, flag)
-        self.capture_s = sp.seconds
-        return dsi
-
-    def __call__(self, events: Events, traj: trajmod.Trajectory, T_rv_w: SE3) -> torch.Tensor:
-        """Stage, replay on the current stream, and copy the output into a
-        fresh DSI (the tracer's `replay.vote`)."""
-        self._load(events, traj, T_rv_w)
-        with tracing.span("replay.vote", self.device):
-            self.graph.replay()
-            return self.graph.out.clone()
-
-    def close(self) -> None:
-        """Drop the graph and its buffers once the card is done with them."""
-        if self.graph is not None:
-            torch.cuda.synchronize(self.device)
-        self.graph = None
+    run = functools.partial(_vote, body, c, *events,
+                            trajmod.Trajectory(poses[0], SE3(poses[1], poses[2])), SE3(*T_rv_w))
+    static = [b for b in events if b is not None] + poses + T_rv_w
+    return graphs.Captured(dev, static, run, kind="vote", load=load)
 
 
 def evaluate_dsi(
@@ -483,7 +409,7 @@ def evaluate_dsi(
     The events may be host arrays, CPU tensors or tensors on the
     trajectory's device (staged there with no host round trip); tensors on
     another device raise.  Host arrays may be read by the card after the
-    call returns (by DMA, `Program._load`): they must not change until the
+    call returns (by DMA, `_stage`): they must not change until the
     device's work queued so far is done.
 
     `rectify` = "device" recomputes rectification per event; "lut" gathers
@@ -497,23 +423,17 @@ def evaluate_dsi(
     """
     if events.num <= packet_size:
         return None
-    n_static = _n_static(events.num, packet_size, pad)
     body = _setup(mapper, packet_size, backend, plane_block, rectify)
     dev = traj.device
-    flag = graphs.fault_flag(dev)
     if graphs.use_programs(dev):
         key = program_key(mapper, events.num, traj, packet_size, backend, plane_block,
                           rectify, pad)
-        prog = _PROGRAMS.get(key)
-        if prog is None:
-            prog = Program(key, mapper, body, n_static, pad == "bucket", traj)
-            dsi = prog.capture(events, traj, T_rv_w, flag)
-            _PROGRAMS.put(key, prog)
-        else:
-            dsi = prog(events, traj, T_rv_w)
+        n_static = _n_static(events.num, packet_size, pad)
+        dsi = _PROGRAMS.call(key, lambda: _program(mapper, body, n_static, pad == "bucket",
+                                                   traj), events, traj, T_rv_w)
     else:
-        x, y, t, w = _host_events(events, packet_size, pad, dev)
-        with binning.deferred_weight_checks(flag):
+        x, y, t, w = _device_events(events, packet_size, pad, dev)
+        with binning.deferred_weight_checks(graphs.fault_flag(dev)):
             dsi = _vote(body, _constants(mapper, body, dev), x, y, t, w, traj, T_rv_w)
     graphs.mark_pending(dev)
     return dsi

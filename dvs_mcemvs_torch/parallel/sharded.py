@@ -18,19 +18,19 @@ it from the global arrays of `sharded_step_inputs`, and
 `sharded_step_inputs_multihost` builds it from the events a process holds.
 Buffers are padded to shard and packet multiples with zero-weight events.
 
-On the card the step is a program per key, the counterpart of the JAX
-jit: the body is cut at the collectives that run (`segment_plan`), each
-compute segment is one CUDA graph, and each collective runs eagerly
-between two replays (gloo, which ranks sharing a card use, cannot be
-captured).  A collective over a group of one rank is left out, as XLA's
-over an axis of size 1 is the identity.  `graphs.eager()` (also
-`mapper.eager()`) runs the body eagerly; the CPU always does.
+On the card the step is a program per key (`graphs.Captured`), the
+counterpart of the JAX jit: the body is cut at the collectives that run
+(`segment_plan`), each compute segment is one CUDA graph, and each
+collective runs eagerly between two replays (`graphs.Eager`: gloo, which
+ranks sharing a card use, cannot be captured).  A collective over a group
+of one rank is left out, as XLA's over an axis of size 1 is the identity.
+`graphs.eager()` (also `mapper.eager()`) runs the body eagerly; the CPU
+always does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -278,7 +278,7 @@ STEP_PROGRAM_CACHE_SIZE = 8
 
 class _Op(NamedTuple):
     """One part of a step's body: `run(state)` computes on this rank's
-    tensors, or, for a collective, `run(state, mesh)` joins the ranks."""
+    tensors, or, for a collective, joins the ranks of `state["mesh"]`."""
 
     name: str
     run: Callable
@@ -289,9 +289,9 @@ def _ops(spec: ShardedRigSpec, cfg: ShardedStepConfig, kind: str,
          mesh_shape: Tuple[int, int], pi: int) -> List[_Op]:
     """The body of this rank's step of `kind` on a mesh of `mesh_shape`,
     plane coordinate `pi`, in order.  The state starts as {"args": the 13
-    arguments on the device} and ends with "out".  A collective over a
-    group of one rank is left out: XLA's `psum` and `all_gather` over an
-    axis of size 1 are the identity."""
+    arguments on the device, "mesh": the step's mesh} and ends with "out".
+    A collective over a group of one rank is left out: XLA's `psum` and
+    `all_gather` over an axis of size 1 are the identity."""
     n_event, n_plane = mesh_shape
     zblock = spec.dim_z // n_plane
     splat = voting.resolve_backend(cfg.backend)
@@ -340,8 +340,8 @@ def _ops(spec: ShardedRigSpec, cfg: ShardedStepConfig, kind: str,
         return run
 
     def all_reduce(c):
-        def run(s, mesh):
-            dist.all_reduce(s["dsis"][c], group=mesh.get_group(EVENT_AXIS))
+        def run(s):
+            dist.all_reduce(s["dsis"][c], group=s["mesh"].get_group(EVENT_AXIS))
         return run
 
     ops = [_Op("prepare", prepare)]
@@ -367,8 +367,8 @@ def _ops(spec: ShardedRigSpec, cfg: ShardedStepConfig, kind: str,
             s["confs"] = [torch.empty_like(s["conf"]) for _ in range(n_plane)]
             s["idxs"] = [torch.empty_like(s["idx"]) for _ in range(n_plane)]
 
-    def all_gather(s, mesh):
-        group = mesh.get_group(PLANE_AXIS)
+    def all_gather(s):
+        group = s["mesh"].get_group(PLANE_AXIS)
         dist.all_gather(s["confs"], s["conf"], group=group)
         dist.all_gather(s["idxs"], s["idx"], group=group)
 
@@ -410,23 +410,19 @@ def segment_plan(spec: ShardedRigSpec, cfg: ShardedStepConfig, kind: str,
             for seg in _segments(_ops(spec, cfg, kind, mesh_shape, pi))]
 
 
-def _run_ops(ops: Sequence[_Op], state: dict) -> None:
-    for op in ops:
-        op.run(state)
+def _body(segments: list, state: dict) -> list:
+    """`_segments` as a program's body over `state`: each run of compute
+    ops a callable, each collective a `graphs.Eager` segment; each returns
+    the step's output as far as it is set ("out")."""
+    def run(ops):
+        def fn():
+            for op in ops:
+                op.run(state)
+            return state.get("out")
+        return fn
 
-
-def _run_eager(segments: list, args: List[torch.Tensor], mesh: DeviceMesh,
-               flag: torch.Tensor):
-    """The body run eagerly on the device tensors `args`; its compute under
-    deferred weight checks into `flag`."""
-    state = {"args": args}
-    for seg in segments:
-        if isinstance(seg, list):
-            with binning.deferred_weight_checks(flag):
-                _run_ops(seg, state)
-        else:
-            seg.run(state, mesh)
-    return state["out"]
+    return [run(seg) if isinstance(seg, list) else graphs.Eager(run([seg]))
+            for seg in segments]
 
 
 def _signature(args) -> tuple:
@@ -457,74 +453,25 @@ def clear_programs() -> None:
     _PROGRAMS.clear()
 
 
-class StepProgram:
-    """This rank's body of a sharded step for one key, on its card: each
-    compute segment captured in a CUDA graph (`graphs.Graph`), replayed in
-    order with the collectives run eagerly between them on the same stream.
+def _program(segments: list, args, device: torch.device) -> graphs.Captured:
+    """This rank's step program for one key (kind "sharded"): the 13
+    arguments' static buffers and `_body`'s segments, the collectives
+    reading and writing the graphs' outputs in place.  Its load
+    (`prog(mesh, *args)`, inside the tracer's `vote.stage`) stages the
+    padded event arrays through a `graphs.Staging` and copies the tables."""
+    inputs = [torch.empty(t.shape, dtype=t.dtype, device=device)
+              for t in map(torch.as_tensor, args)]
+    staging = graphs.Staging(inputs[:4])
+    state = {"args": inputs}
 
-    It owns the 13 arguments' static buffers (the event arrays staged
-    through pinned buffers, `graphs.Staging`; the tables copied) and the
-    graphs, whose outputs the collectives read and write in place.  A call
-    returns fresh copies of the step's outputs."""
-
-    def __init__(self, key: tuple, segments: list, args, device: torch.device):
-        self.key, self.segments, self.device = key, segments, device
-        self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=device)
-                       for t in map(torch.as_tensor, args)]
-        self.staging = graphs.Staging(self.inputs[:4])
-        self.graphs: List[graphs.Graph] = []
-        self.state: dict = {}
-        self.capture_s = 0.0
-
-    def _load(self, args) -> None:
-        """The call's arguments into the static buffers, on the current
-        stream: the event arrays (host arrays) through the pinned buffers
-        not in flight, the tables by a copy each (the tracer's `vote.stage`)."""
-        def fill(host):
-            for h, a in zip(host, args[:4]):
-                np.copyto(h, np.asarray(a))
-
-        with tracing.span("vote.stage", self.device):
-            self.staging.load(fill)
-            for dst, a in zip(self.inputs[4:], args[4:]):
+    def load(mesh: DeviceMesh, *args) -> None:
+        with tracing.span("vote.stage", device):
+            staging.load(args[:4])
+            for dst, a in zip(inputs[4:], args[4:]):
                 dst.copy_(torch.as_tensor(a), non_blocking=True)
+        state["mesh"] = mesh
 
-    def capture(self, mesh: DeviceMesh, args, flag: torch.Tensor):
-        """First use: stage the arguments, run the body eagerly, collectives
-        included (`graphs.warm_up`), then capture each compute segment.
-        Returns the eager run's outputs; the counts of its launches stand.
-        `capture_s` is the length of the tracer's `capture.sharded` span."""
-        with tracing.timed("capture.sharded") as sp:
-            self._load(args)
-            out = graphs.warm_up(
-                self.device, lambda: _run_eager(self.segments, self.inputs, mesh, flag), flag)
-            self.state = {"args": self.inputs}
-            for seg in self.segments:
-                if isinstance(seg, list):
-                    self.graphs.append(graphs.Graph(
-                        self.device, functools.partial(_run_ops, seg, self.state), flag))
-        self.capture_s = sp.seconds
-        return out
-
-    def __call__(self, mesh: DeviceMesh, args):
-        """Stage, replay the segments with the collectives between them, and
-        copy the outputs into fresh tensors (the tracer's `replay.sharded`)."""
-        self._load(args)
-        with tracing.span("replay.sharded", self.device):
-            tracing.mark()
-            replays = iter(self.graphs)
-            for seg in self.segments:
-                if isinstance(seg, list):
-                    next(replays).replay()
-                else:
-                    seg.run(self.state, mesh)
-            return graphs.fresh(self.state["out"])
-
-    def close(self) -> None:
-        """Drop the graphs and their buffers once the card is done with them."""
-        if self.graphs:
-            torch.cuda.synchronize(self.device)
-        self.graphs, self.state = [], {}
+    return graphs.Captured(device, inputs, _body(segments, state), kind="sharded", load=load)
 
 
 def _check_mesh(mesh: DeviceMesh, spec: ShardedRigSpec) -> None:
@@ -549,20 +496,15 @@ def _make_step(mesh: DeviceMesh, spec: ShardedRigSpec, cfg: ShardedStepConfig, k
     dev = mesh_device(mesh)
 
     def step(*args):
-        flag = graphs.fault_flag(dev)
         if graphs.use_programs(dev):
             key = step_key(dev, shape, mesh.get_coordinate(), dist.get_backend(), spec, cfg,
                            kind, args)
-            prog = _PROGRAMS.get(key)
-            if prog is None:
-                prog = StepProgram(key, segments, args, dev)
-                out = prog.capture(mesh, args, flag)
-                _PROGRAMS.put(key, prog)
-            else:
-                out = prog(mesh, args)
+            out = _PROGRAMS.call(key, lambda: _program(segments, args, dev), mesh, *args)
         else:
-            out = _run_eager(segments, [torch.as_tensor(a, device=dev) for a in args], mesh,
-                             flag)
+            state = {"args": [torch.as_tensor(a, device=dev) for a in args], "mesh": mesh}
+            with binning.deferred_weight_checks(graphs.fault_flag(dev)):
+                for seg in _body(segments, state):
+                    out = seg()
         graphs.mark_pending(dev)
         if kind == FULL:
             graphs.check_faults()
@@ -585,7 +527,7 @@ def make_sharded_step(
       "depth", "confidence", "mask", "depth_indices": the 2D maps, equal on
       every rank.
     Every rank of the mesh calls it in step, since it runs collectives.  On
-    the card it replays a program (`StepProgram`), the counterpart of the
+    the card it replays a program (`_program`), the counterpart of the
     JAX package's jit; refused binning weights raise before it returns.
     """
     return _make_step(mesh, spec, cfg, FULL)

@@ -12,13 +12,13 @@ Spans (nested per thread):
 
   full_seq.window   `pipeline.run_full_seq(_stores)`: a chunk's slicing
   process           `pipeline.process_1`, `process_time_fusion`, whole
-  vote.stage        `mapper.Program._load`, `sharded.StepProgram._load`:
+  vote.stage        `mapper._program`'s, `sharded._program`'s loads:
                     a vote's inputs staged to the card                    [device]
   wait.staging      `graphs.Staging.load` waiting for a pinned set
-  replay.<kind>     a program's call: its input copies, the graph's
-                    replay and its output copy                            [device]
-  capture.<kind>    a program's first call: the eager warm-up and the
-                    capture (`capture_s` is this span's length)
+  replay.<kind>     a program's call: its input copies (not a load), the
+                    graphs' replays and its output copy                   [device]
+  capture.<kind>    a program's first call: a load of its own, the warm-up
+                    and the capture (`capture_s` is this span's length)
   wait.faults       `graphs.check_faults` reading the fault flags
   wait.sync         `pipeline._synchronize` waiting for the device
 
@@ -32,8 +32,8 @@ A span marked [device], given a CUDA device that `enable` anchored, records
 a pair of timing events on the current stream that covers the work the
 span queued: the first at the span's first `mark()`, just before its
 device work is queued (`graphs.Staging.load` once the pinned buffers are
-filled; `graphs.Graph.replay`, `graphs.Captured` and the vote's
-device-to-device and DMA stagings before they queue anything), so that
+filled; `graphs.Graph.replay`, `graphs.Captured` and `mapper._stage`'s
+device-to-device and DMA copies before they queue anything), so that
 host work before it (a fill, on an idle stream) stays out of the interval,
 though on an idle stream the interval still holds the launch call itself
 (tens of microseconds; milliseconds under torch.profiler); the second as
@@ -77,11 +77,11 @@ COUNTS = threading.Lock()
 _held = threading.local()
 
 
-# The vote's staging (`mapper._stage`, `_stage_dma`, `_stage_device`):
-# "events", the chunk's own; "pad", the zero-weight events of the bucket
-# pad past them; "dma_chunks", the camera-chunks copied by DMA from host
-# arrays page-locked in place (`_stage_dma`); "fill_chunks", those written
-# into pinned or pageable buffers on the host first (`_stage`);
+# The vote's staging (`mapper._stage`): "events", the chunk's own; "pad",
+# the zero-weight events of the bucket pad past them; "dma_chunks", the
+# camera-chunks copied by DMA from host arrays page-locked in place;
+# "fill_chunks", those cast on the host and copied through pinned buffers
+# or plainly;
 # "registrations" and "locked_bytes", the host arrays page-locked
 # (`graphs.PageLocks`) and the bytes of their pages.
 STAGED = {"events": 0, "pad": 0, "dma_chunks": 0, "fill_chunks": 0, "registrations": 0,

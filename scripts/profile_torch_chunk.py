@@ -65,15 +65,10 @@ COPY_CALLS = ("cudaMemcpyAsync", "cudaMemsetAsync", "cudaMemcpy", "cudaMemset")
 
 def _busy_us(events) -> float:
     """Microseconds in which at least one of the device events runs."""
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    return busy + (0.0 if cur_e is None else cur_e - cur_s)
+    from dvs_mcemvs_torch import tracing
+
+    return sum(e - s for s, e in tracing.merge(
+        [(ev.time_range.start, ev.time_range.end) for ev in events]))
 
 
 def profile_chunk(workload, spec: str, eager: bool, ts: float = 0.5, trace: str = "") -> dict:

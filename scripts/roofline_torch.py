@@ -226,7 +226,7 @@ class Stages:
         self.body = mappermod._setup(m, packet, spec, 8, "device")
         dev = trajs[0].device
         self.consts = mappermod._constants(m, self.body, dev)
-        self.inputs = [mappermod._host_events(ev, packet, "bucket", dev) for ev in events]
+        self.inputs = [mappermod._device_events(ev, packet, "bucket", dev) for ev in events]
         self.flag = torch.zeros(1, dtype=torch.int32, device=dev)
         fx, fy, cx, cy = vp = self.body.vcam_params
         H, W, z0 = m.height, m.width, self.body.z0

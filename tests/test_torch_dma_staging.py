@@ -1,14 +1,14 @@
-"""The vote's staging by DMA (`mapper._stage_dma`, `graphs.PageLocks`): a
-chunk sliced from host arrays that lie in page-locked memory is copied
-straight into the program's static buffers, its time cast to float32 and
-its bucket pad written on the device.
+"""The vote's staging (`mapper._stage`, `graphs.PageLocks`): a chunk sliced
+from host arrays that lie in page-locked memory is copied by DMA straight
+into the program's static buffers, its time cast to float32 and its bucket
+pad written on the device; other sources take the same pad.
 
-On the CPU, torch CPU tensors stand in for the card: the DMA staging
-against the host fill (`mapper._stage`) bit for bit, and the page locks,
-driven through a fake register/unregister pair, through a program's
-staging (`mapper.Program._load`) over the passes of
-`pipeline.run_full_seq`, which locks its streams, and of
-`run_full_seq_stores`, which locks nothing.
+On the CPU, torch CPU tensors stand in for the card: every source (DMA,
+tensors on the buffers' device, a program's pinned sets, plain copies)
+against a numpy reference bit for bit, and the page locks, driven through
+a fake register/unregister pair, through a vote program's load
+(`mapper._program`) over the passes of `pipeline.run_full_seq`, which
+locks its streams, and of `run_full_seq_stores`, which locks nothing.
 
 The test marked `card` needs an NVIDIA GPU and skips without one; this file
 imports no JAX, so on the card it runs as
@@ -63,6 +63,24 @@ def _stream(n: int, rng, width: int = 240, height: int = 180) -> Events:
     return Events(x, y, t).slice(pad, pad + n)
 
 
+def _staged_since(before: dict) -> dict:
+    return {k: tracing.STAGED[k] - before[k] for k in before}
+
+
+def _reference(ev: Events, n_static: int, bucket: bool) -> list:
+    """What the staging writes, by numpy: x and y zero past the chunk's n
+    events, t at the last event's time past them, and under pad="bucket"
+    w 1 for the events and 0 past them (None without the pad)."""
+    n = ev.num
+    x, y = np.zeros(n_static, np.int32), np.zeros(n_static, np.int32)
+    t, w = np.empty(n_static, np.float32), np.zeros(n_static, np.float32)
+    x[:n], y[:n], t[:n] = ev.x, ev.y, ev.t
+    t[n:] = t[n - 1]
+    w[:n] = 1.0
+    return [x, y, t, w if bucket else None]
+
+
+@pytest.mark.parametrize("source", ["dma", "device", "pinned", "plain"])
 @pytest.mark.parametrize("pad,n", [
     ("bucket", 3 * PACKET + 5),      # a partial last packet, padded to the bucket
     ("bucket", 4 * PACKET),          # on a bucket edge: no pad
@@ -71,29 +89,42 @@ def _stream(n: int, rng, width: int = 240, height: int = 180) -> Events:
     ("none", 3 * PACKET + 5),        # no pad: the chunk's own count
     ("none", 1),
 ])
-def test_dma_staging_matches_the_fill_bit_for_bit(pad, n):
-    """x, y, the float32 times and the weights staged by DMA (into buffers
-    that held another chunk) equal the host fill's to the bit."""
+def test_dma_staging_matches_the_fill_bit_for_bit(fake, pad, n, source):
+    """x, y, the float32 times and the weights staged into buffers that
+    held another chunk equal the numpy reference's to the bit, from every
+    source: by DMA from page-locked host arrays, device to device from
+    tensors on the buffers' device, through a program's pinned set, and
+    copied plainly; the tracer counts the camera-chunk under its path."""
     rng = np.random.default_rng(n)
     ev = _stream(n, rng)
     n_static = mapper._n_static(n, PACKET, pad)
     bucket = pad == "bucket"
-    host = [np.empty(n_static, np.int32), np.empty(n_static, np.int32),
-            np.empty(n_static, np.float32), np.empty(n_static, np.float32) if bucket else None]
-    mapper._stage(ev, *host)
+    want = _reference(ev, n_static, bucket)
     dev = [torch.from_numpy(rng.integers(-9, 9, n_static).astype(np.int32)),
            torch.from_numpy(rng.integers(-9, 9, n_static).astype(np.int32)),
            torch.full((n_static,), np.nan, dtype=torch.float32),
            torch.full((n_static,), 7.0) if bucket else None]
-    t64 = torch.full((n_static,), np.nan, dtype=torch.float64)
-    mapper._stage_dma(ev, *dev, t64)
-    for want, got in zip(host, dev):
-        if want is None:
+    fake()
+    src, staging = ev, None
+    if source == "dma":
+        graphs.PAGE_LOCKS.lock(ev.x, ev.y, ev.t)
+    elif source == "device":
+        src = Events(*(torch.from_numpy(a) for a in ev[:3]))
+    elif source == "pinned":
+        staging = graphs.Staging(dev[:3])
+    before = dict(tracing.STAGED)
+    mapper._stage(src, dev, staging)
+    staged = _staged_since(before)
+    assert (staged["dma_chunks"], staged["fill_chunks"]) == {
+        "dma": (1, 0), "device": (0, 0), "pinned": (0, 1), "plain": (0, 1)}[source]
+    assert (staged["events"], staged["pad"]) == (n, n_static - n)
+    for want_b, got in zip(want, dev):
+        if want_b is None:
             assert got is None
             continue
-        assert got.dtype == torch.from_numpy(want).dtype
-        np.testing.assert_array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
-    assert np.array_equal(host[2][:n], ev.t.astype(np.float32))
+        assert got.dtype == torch.from_numpy(want_b).dtype
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), want_b.view(np.uint32))
+    assert np.array_equal(want[2][:n], ev.t.astype(np.float32))
 
 
 class _Fake:
@@ -120,12 +151,33 @@ class _CpuLocks(graphs.PageLocks):
         pass
 
 
+class _NoEvent:
+    """A CUDA event's stand-in: the CPU's copies are done when queued."""
+
+    def record(self, stream=None):
+        pass
+
+    def synchronize(self):
+        pass
+
+
+class _CpuStaging(graphs.Staging):
+    """`graphs.Staging` with its two sets in the CPU's pageable memory."""
+
+    def __init__(self, buffers):
+        super().__init__(buffers)
+        self.host = [[torch.empty_like(b) for b in buffers] for _ in range(2)]
+
+
 @pytest.fixture
 def fake(monkeypatch):
     """The process's page locks replaced by fresh ones on a fake pair, and
     the CPU taken for a device that runs programs (its tensors stand in
-    for the card), so that `run_full_seq` locks its streams."""
+    for the card, its pageable memory for a program's pinned sets), so
+    that `run_full_seq` locks its streams."""
     monkeypatch.setattr(graphs, "use_programs", lambda device: True)
+    monkeypatch.setattr(graphs, "Staging", _CpuStaging)
+    monkeypatch.setattr(torch.cuda, "Event", _NoEvent)
 
     def make(refuse=False):
         f = _Fake(refuse)
@@ -150,17 +202,6 @@ def _rig():
     fopts = pipeline.FullSeqOptions(start_time=0.0, stop_time=1.0, duration=0.5,
                                     out_skip=0.25)
     return [m, m], events, trajs, fopts
-
-
-class _HostStaging:
-    """A program's host fill straight into its CPU buffers (`graphs.Staging`
-    stages through pinned sets into buffers on the card)."""
-
-    def __init__(self, buffers):
-        self.buffers = buffers
-
-    def load(self, fill):
-        fill([b.numpy() for b in self.buffers])
 
 
 class _Store:
@@ -194,31 +235,23 @@ def _stage_passes(mappers, events, trajs, fopts, passes: int, split=None,
                   stores: bool = False):
     """`passes` runs of run_full_seq (over `_Store`s of `events` where
     `stores`) whose process stages each camera's chunk, or each part of it
-    that `split(chunk, camera)` gives, through a program's staging on the
-    CPU (`Program._load`, pad "bucket"), checking the staged buffers
-    against the host fill; the camera-chunks staged."""
+    that `split(chunk, camera)` gives, through a vote program's load on the
+    CPU (`mapper._program`, pad "bucket"), checking the staged buffers
+    against the numpy reference; the camera-chunks staged."""
     n_max = max(ev.time_window(t0, t1).num for ev in events
                 for t0, t1, _ in pipeline.full_seq_windows(fopts))
     n_static = mapper.bucket_capacity(n_max, PACKET)
     body = mapper._setup(mappers[0], PACKET, "scatter", 8, "device")
-    progs = [mapper.Program(("test", i), m, body, n_static, True, trj)
-             for i, (m, trj) in enumerate(zip(mappers, trajs))]
-    for prog in progs:
-        prog.staging = _HostStaging(prog.events)
+    progs = [mapper._program(m, body, n_static, True, trj) for m, trj in zip(mappers, trajs)]
     T_rv_w = se3.identity(device="cpu")
     staged = [0]
 
     def process(mps, chunk, trs, ts):
         for cam, (prog, whole, trj) in enumerate(zip(progs, chunk, trs)):
             for ev in ([whole] if split is None else split(whole, cam)):
-                prog._load(ev, trj, T_rv_w)
+                prog.load(ev, trj, T_rv_w)
                 staged[0] += 1
-                host = [np.empty(n_static, np.int32), np.empty(n_static, np.int32),
-                        np.empty(n_static, np.float32), np.empty(n_static, np.float32)]
-                counted = dict(tracing.STAGED)
-                mapper._stage(ev, *host)
-                tracing.STAGED.update(counted)
-                for want, got in zip(host, prog.events):
+                for want, got in zip(_reference(ev, n_static, True), prog.inputs[:4]):
                     np.testing.assert_array_equal(got.numpy().view(np.uint32),
                                                   want.view(np.uint32))
         return ts
@@ -230,10 +263,6 @@ def _stage_passes(mappers, events, trajs, fopts, passes: int, split=None,
         else:
             list(pipeline.run_full_seq(mappers, events, trajs, fopts, process))
     return staged[0]
-
-
-def _staged_since(before: dict) -> dict:
-    return {k: tracing.STAGED[k] - before[k] for k in before}
 
 
 def test_arrays_are_locked_once_across_passes_and_released_when_freed(fake):
@@ -354,7 +383,8 @@ def test_dma_and_fill_vote_the_same_dsi_on_the_card():
     key = mapper.program_key(m, n, traj, 1024, "scatter", 8, "device", "bucket")
 
     def staged_buffers():
-        return [b.cpu().numpy().view(np.uint32).copy() for b in mapper._PROGRAMS.get(key).events]
+        return [b.cpu().numpy().view(np.uint32).copy()
+                for b in mapper._PROGRAMS.get(key).inputs[:4]]
 
     # The fill: the same values in arrays that no one locked.
     fill_ev = Events(*(np.concatenate([a, a[:1]])[:-1] for a in ev[:3]))

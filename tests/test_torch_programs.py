@@ -81,8 +81,8 @@ def _body_inputs(graft, backend, n=3000):
     m = convert.mapper(mappers[0])
     body = tmapper._setup(m, packet_size, backend, 8, "device")
     dev = torch.device("cpu")
-    x, y, t, w = tmapper._host_events(convert.events(events[0].slice(0, n)), packet_size,
-                                      "bucket", dev)
+    x, y, t, w = tmapper._device_events(convert.events(events[0].slice(0, n)), packet_size,
+                                        "bucket", dev)
     return (body, tmapper._constants(m, body, dev), x, y, t, w,
             convert.trajectory(trajs[0], "cpu"), convert.se3(T_rv_w, "cpu"))
 
@@ -372,13 +372,13 @@ def test_a_chunk_of_refused_weights_never_becomes_a_depth_map(graft, monkeypatch
     the pipeline's sync (`vopts.sync`) or the extraction raises the binning's
     message before a depth map is handed back."""
     mappers, events, trajs, _, packet_size = graft
-    real = tmapper._stage_weights
+    real = tmapper._pad_device
 
-    def stage_refused(w, n):
-        real(w, n)
+    def pad_refused(x, y, t, w, n):
+        real(x, y, t, w, n)
         w[n // 2] = bad
 
-    monkeypatch.setattr(tmapper, "_stage_weights", stage_refused)
+    monkeypatch.setattr(tmapper, "_pad_device", pad_refused)
     tm = [convert.mapper(m) for m in mappers]
     vopts = tpipe.VotingOptions(packet_size=packet_size, backend="hist:g4,seg4,i8,pl",
                                 pad_policy="bucket", sync=sync)

@@ -107,7 +107,8 @@ def _run_segments(segments, args, guard=None):
     for seg in segments:
         if isinstance(seg, list):
             with binning.deferred_weight_checks(flag), (guard or contextlib.nullcontext)():
-                tsharded._run_ops(seg, state)
+                for op in seg:
+                    op.run(state)
         else:
             _fake_collective(seg, state)
     assert not flag.any()

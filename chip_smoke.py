@@ -3287,14 +3287,17 @@ VOTE_L1 = 1e-6
 # chunk; MVSEC: a 1 s window's sub-interval), and planes of the sharded
 # slice (the second half of the headline depths, z0 of the first plane).
 VOTE_MVSEC_EVENTS, VOTE_MVSEC_W, VOTE_MVSEC_H = 131_072, 346, 260
+# TUM-VIE's camera: 3,000,000 events staged as 4,194,304 (the bucket pad).
+VOTE_TUMVIE_EVENTS, VOTE_TUMVIE_W, VOTE_TUMVIE_H = 3_000_000, 1280, 720
 VOTE_SLICE = slice(50, 100)
 
 
 def _vote_inputs(workload, rng):
     """Camera 0's warped packets of `workload`'s chunk (bucket-padded, at
     process_1's reference view) made harder: every 7th packet invalid,
-    random weights with a tenth zero, and 1 % of the events each moved far
-    outside the image or to +-inf or NaN.  Returns (xy, pw, coef, mapper)."""
+    random weights with a tenth zero (the bucket pad kept at zero), and 1 %
+    of the events each moved far outside the image or to +-inf or NaN.
+    Returns (xy, pw, coef, mapper)."""
     from dvs_mcemvs_torch import mapper as mappermod, pipeline
     from dvs_mcemvs_torch.ops import voting
 
@@ -3314,6 +3317,8 @@ def _vote_inputs(workload, rng):
     valid[::7] = False
     weight = torch.as_tensor(rng.uniform(0, 1, (K, P)) * (rng.uniform(size=(K, P)) > 0.1),
                              dtype=torch.float32, device=dev)
+    if packets.weight is not None:  # the bucket pad stays zero-weight
+        weight = weight * (packets.weight != 0)
     packets = voting.WarpedPackets(xy.reshape(K, P, 2), packets.centers, valid, weight)
     vc = m.vcam
     coef = torch.stack(voting.eq15_coefficients(packets.centers, depths, z0, float(vc.fx),
@@ -3323,15 +3328,21 @@ def _vote_inputs(workload, rng):
 
 def vote_kernel_row(dev, what, xy, pw, coef, width, height, iters=10) -> dict:
     """`scatter_vote` against `scatter_vote_reference` on the card: one
-    launch counted, the same non-zero voxels, relative L1 <= VOTE_L1; the
-    kernel by graph and by loop, the plain version by loop, the bound by
-    bytes (events, coefficients and the DSI once) and the taps a second."""
+    launch counted, the same non-zero voxels, relative L1 <= VOTE_L1, the
+    gather's counters with visits >= hits > 0; the kernels by graph and by
+    loop, the plain version by loop, the plan (`vote_params`), the bound by
+    bytes (events, coefficients and the DSI written once) and the taps a
+    second."""
     from dvs_mcemvs_torch.kernels import scatter
 
     E, (K, Z, _) = xy.shape[0], coef.shape
     before = scatter.scatter_vote.launches
+    counts = scatter.vote_counters()
     got = scatter.scatter_vote(xy, pw, coef, width=width, height=height)
     _sync(dev)
+    counts = {k: v - counts[k] for k, v in scatter.vote_counters().items()}
+    if not counts["visits"] >= counts["hits"] > 0:
+        raise AssertionError(f"{what}: the gather counted {counts}")
     if scatter.scatter_vote.launches != before + 1:
         raise AssertionError(f"{what}: {scatter.scatter_vote.launches - before} launches "
                              "counted for one call")
@@ -3351,21 +3362,26 @@ def vote_kernel_row(dev, what, xy, pw, coef, width, height, iters=10) -> dict:
     moved = (xy.numel() + pw.numel() + coef.numel() + Z * height * width) * 4
     bound = work_model().bound(moved, 0)
     taps = 4 * E * Z
+    plan = scatter.vote_params(Z, height, width, K, E // K)._asdict()
     row = dict(max_abs_err=max_abs, rel_l1=l1, **t, **bound, ceiling_ms=None,
-               ceiling_share=None, slab=scatter.slab_planes(Z, height, width), taps=taps,
+               ceiling_share=None, plan=plan, **counts,
+               visits_per_hit=counts["visits"] / counts["hits"], taps=taps,
                g_taps_per_s=taps / t["ms"] / 1e6)
-    log(f"  scatter_vote {what} ({E} events, {K} packets -> {Z}x{height}x{width}, slab "
-        f"{row['slab']}): relative L1 {l1:.3g}, non-zero voxels equal; {t['ms']:.4f} ms by "
+    log(f"  scatter_vote {what} ({E} events, {K} packets -> {Z}x{height}x{width}, plan "
+        f"{plan}): relative L1 {l1:.3g}, non-zero voxels equal; {t['ms']:.4f} ms by "
         f"graph, {t['loop_ms']:.4f} by loop, plain {t['plain_ms']:.3f}; bound "
         f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, {moved / 1e6:.1f} MB); "
-        f"{taps / 1e6:.1f} M taps: {row['g_taps_per_s']:.1f} G taps/s")
+        f"{taps / 1e6:.1f} M taps: {row['g_taps_per_s']:.1f} G taps/s; visits {counts['visits']}"
+        f", hits {counts['hits']} ({row['visits_per_hit']:.3f} a hit), fallbacks "
+        f"{counts['fallbacks']}")
     return row
 
 
 def vote_kernel_phase(dev, workload, iters=10) -> dict:
     """The exact vote's kernel against its plain version on the card at the
     presets' camera shapes: the headline chunk's camera (640x480x100, 1 Mi
-    events), a 346x260x100 camera of VOTE_MVSEC_EVENTS and a plane-sharded
+    events), a 346x260x100 camera of VOTE_MVSEC_EVENTS, a 1280x720x100
+    camera of VOTE_TUMVIE_EVENTS with its bucket pad and a plane-sharded
     slice of the headline depths, each with invalid packets, weights and
     out-of-bounds and non-finite coordinates (`vote_kernel_row`); then the
     launches a chunk on the main path: process_1 under `scatter` 2 (one a
@@ -3387,7 +3403,14 @@ def vote_kernel_phase(dev, workload, iters=10) -> dict:
     xy, pw, coef, m = _vote_inputs(small, rng)
     rows["scatter_vote_mvsec"] = vote_kernel_row(dev, f"MVSEC {m.width}x{m.height}", xy, pw,
                                                  coef, m.width, m.height, iters)
-    del xy, pw, coef
+    del xy, pw, coef, small
+    hd = build_workload(dev, n_events=VOTE_TUMVIE_EVENTS, width=VOTE_TUMVIE_W,
+                        height=VOTE_TUMVIE_H)
+    xy, pw, coef, m = _vote_inputs(hd, rng)
+    rows["scatter_vote_tumvie"] = vote_kernel_row(
+        dev, f"TUM-VIE {m.width}x{m.height}, {VOTE_TUMVIE_EVENTS} of {xy.shape[0]} staged", xy,
+        pw, coef, m.width, m.height, iters)
+    del xy, pw, coef, hd
 
     mappers, events, trajs, _ = workload
     vopts = pipeline.VotingOptions(packet_size=PACKET, backend="scatter", pad_policy="bucket")

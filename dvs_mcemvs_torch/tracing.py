@@ -51,8 +51,11 @@ of `graphs.COUNTED`'s kernel wrappers,
 events: the chunk's own and the bucket pad's zero-weight ones, counted by
 `staged` once a camera-chunk; the camera-chunks staged by DMA and by the
 host fill; the host arrays page-locked and their bytes, by `registered`),
-each updated under `COUNTS` (exact across threads); `snapshot()` reports
-what they gained since `enable()`.
+each updated under `COUNTS` (exact across threads); and
+`kernels.scatter.vote_counters()` (the vote pass's event-planes visited and
+hit and its fallbacks), which the card adds up and which is read only at
+`enable()` and `snapshot()`.  `snapshot()` reports what they gained since
+`enable()`.
 """
 
 from __future__ import annotations
@@ -131,13 +134,15 @@ def held_launches() -> Iterator[dict]:
 
 def _counters() -> dict:
     from . import graphs
+    from .kernels import scatter
 
+    vote = scatter.vote_counters()  # reads the devices' buffers: not under COUNTS
     with COUNTS:
         return {"captures": graphs.Graph.captures_total,
                 "replays": graphs.Graph.replays_total,
                 "evictions": graphs.ProgramCache.evictions_total,
                 "launches": {f.__name__: f.launches for f in graphs.COUNTED},
-                "staged": dict(STAGED)}
+                "staged": dict(STAGED), "scatter_vote": vote}
 
 
 # ---------------------------------------------------------------------------
@@ -462,7 +467,8 @@ def snapshot() -> Optional[dict]:
                         "device_ms" (exclusive)}},
      "counters": {"captures", "replays", "evictions", "launches": {wrapper: n},
                   "staged": {"events", "pad", "dma_chunks", "fill_chunks",
-                             "registrations", "locked_bytes"}, "waits", "wait_ms"},
+                             "registrations", "locked_bytes"},
+                  "scatter_vote": {"visits", "hits", "fallbacks"}, "waits", "wait_ms"},
      "process_idle_ms", "idle_by_span": {name: ms}, "gaps": [[name, ms]] (the
      longest), "threads": [name], "spans": [[name, thread, depth, start_ns,
      end_ns, device_start_ns, device_end_ns, device_exclusive_ms]]}
@@ -493,7 +499,8 @@ def snapshot() -> Optional[dict]:
     counters = {k: now[k] - s.base[k] for k in ("captures", "replays", "evictions")}
     counters["launches"] = {k: v - s.base["launches"].get(k, 0)
                             for k, v in now["launches"].items()}
-    counters["staged"] = {k: v - s.base["staged"][k] for k, v in now["staged"].items()}
+    for group in ("staged", "scatter_vote"):
+        counters[group] = {k: v - s.base[group][k] for k, v in now[group].items()}
     waits = [sp for sp in records if sp.name.startswith("wait.")]
     counters["waits"] = len(waits)
     counters["wait_ms"] = sum(sp.end - sp.start for sp in waits) / 1e6
@@ -522,11 +529,13 @@ def snapshot() -> Optional[dict]:
 def summary(snap: dict) -> str:
     """One line of `snap` a chunk (its `process` spans): each span's
     device ms (exclusive) and host ms, the device idle inside `process` by
-    the span it fell in, the longest gaps, the bucket pad's share of the
-    staged events, the camera-chunks staged by DMA and by the host fill,
-    the host arrays page-locked, and the counters."""
+    the span it fell in, the longest gaps, the vote's event-planes visited
+    a hit and its fallbacks, the bucket pad's share of the staged events,
+    the camera-chunks staged by DMA and by the host fill, the host arrays
+    page-locked, and the counters."""
     n = max(snap["chunks"], 1)
     staged = snap["counters"]["staged"]
+    vote = snap["counters"]["scatter_vote"]
     return (f"{snap['chunks']} chunks; a chunk, device ms: "
             + ", ".join(f"{k} {v['device_ms'] / n:.3f}" for k, v in snap["by_name"].items()
                         if v["device_count"])
@@ -536,6 +545,8 @@ def summary(snap: dict) -> str:
             + ", ".join(f"{k} {v / n:.3f}" for k, v in snap["idle_by_span"].items())
             + "); longest gaps, ms: "
             + ", ".join(f"{name} {ms:.3f}" for name, ms in snap["gaps"])
+            + f"; vote visits a hit {vote['visits'] / max(vote['hits'], 1):.3f}, "
+            + f"fallbacks {vote['fallbacks']}"
             + f"; pad {pad_share(staged):.1f} % of the staged events"
             + f"; camera-chunks staged by DMA {staged['dma_chunks']}, by the host fill "
             + f"{staged['fill_chunks']}; host arrays page-locked {staged['registrations']} "

@@ -462,3 +462,25 @@ def test_device_intervals_share_the_host_clock():
     assert busy.sum() >= n and (~busy).sum() >= 1, busy
     assert held.sum() >= n, held
     assert np.all(np.abs(first - np.asarray(d0s))[held] <= tol), first - np.asarray(d0s)
+
+
+def test_vote_counters_read_in_the_snapshot_and_the_summary():
+    """The vote pass's counters (a device buffer a device; here a CPU
+    stand-in) report what they gained since `enable()`, in the snapshot and
+    in the summary line as visits a hit and fallbacks."""
+    from dvs_mcemvs_torch.kernels import scatter
+
+    dev = torch.device("cpu")
+    saved = dict(scatter._COUNTS)
+    buf = scatter._COUNTS[dev] = torch.tensor([100, 40, 1])
+    try:
+        tracing.enable()
+        buf += torch.tensor([600, 240, 2])
+        tracing.disable()
+        snap = tracing.snapshot()
+    finally:
+        scatter._COUNTS.clear()
+        scatter._COUNTS.update(saved)
+    assert snap["counters"]["scatter_vote"] == dict(visits=600, hits=240, fallbacks=2)
+    assert "; vote visits a hit 2.500, fallbacks 2; pad " in tracing.summary(snap)
+    assert '"scatter_vote": {"visits": 600, "hits": 240, "fallbacks": 2}' in tracing.summary(snap)

@@ -2,7 +2,7 @@
 
     python3 benchmark/calibrate.py --workload <cell> --seeds S1,S2,... \
         [--control-seeds N] [--faults stale,half,...] [--fault-seeds N] \
-        [--seconds 2] [--out PATH]
+        [--seconds 2] [--out PATH] [--spec PATH]
 
 For each seed, one run of the cell (a short window at the cell's own load,
 its chunks judged as a benchmark run judges them) gives the program's
@@ -12,7 +12,17 @@ the preset's float32, put in the program's place on the same judged chunks.
 Each fault of `faults.py` is planted in `--fault-seeds` further runs.  Every
 row (kind, seed, worst numbers over the judged chunks, the run's verdict) is
 printed as a JSON line and appended to `--out`.  The benchmark's own runs
-never run this.
+never run this.  `--spec` reads the cell from another spec than
+BENCHMARK.json, with its configs/, mixes/ and limits/ beside that file (a
+fixture such as benchmark/tests/evimo2/spec.json).
+
+The runs of one call share a process.  Where a cell's streams are small
+enough to sit on the heap (the EVIMO2 fixture's 1 Mi events a camera), the
+third run of a process fails in a host-to-card copy (CUDA "invalid
+argument"): the port's page-lock registry (`graphs.PageLocks`) locks whole
+pages around arrays it does not own (PERF.md, Open questions).  Read such
+a cell one call a seed, each in a process of its own, as the benchmark
+runs it.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, default=2.0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="")
+    ap.add_argument("--spec", default="")
     args = ap.parse_args(argv)
     import torch
 
@@ -61,7 +72,7 @@ def main(argv=None) -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     device = torch.device(args.device)
-    cell = harness.load_cell(args.workload)
+    cell = harness.load_cell(args.workload, args.spec)
     seeds = [int(s) for s in args.seeds.split(",")]
 
     def log(msg):

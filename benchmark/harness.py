@@ -6,6 +6,30 @@ a camera a window) and, by its own name, the limits of its
 output check (`limits/<cell>.json`); each per-layer metric is read by
 `metrics/<metric>.py`.  Nothing here names a cell.
 
+A configuration's `rig` is a calibrated rig of two or three cameras (what
+the port's `io.calib.RigCalibration` holds):
+
+    "rig": {
+      "cameras": [                      # camera 0 first
+        {"width": 640, "height": 480,
+         "K": [fx, fy, cx, cy],         # the raw sensor
+         "distortion": "radtan",        # "none" | "radtan" | "equidistant"
+         "D": [k1, k2, p1, p2],         # radtan: k1, k2, p1, p2[, k3] (OpenCV);
+                                        # equidistant: k1..k4 (cv::fisheye)
+         "R": [[...], [...], [...]],    # optional rectifying rotation
+         "T_i_0": [[...], ..., [...]]}, # 4x4, camera 0's frame -> camera i's;
+        ...                             # camera 0's is the identity (may be left out)
+      ],
+      "P": [fx, fy, cx, cy],            # the shared projection, written out
+      "T_hand_eye": [[...], ...],       # optional 4x4: camera 0 in the poses'
+                                        # frame (default the identity)
+      "poses": {"file": ...} | {"flight": {...}}
+    }
+
+Camera i sits at poses o T_hand_eye o T_i_0^-1, as the port's CLI chains a
+rig (`cli._build_trajectories`).  The DSI's virtual camera is P's fx on
+both axes at P's principal point (`ops.camera.virtual_camera`).
+
 A run drives the port's full_seq path as its CLI does (`cli._run_full_seq`
 over events in RAM): `pipeline.run_full_seq` with `pipeline.process_1` or
 `process_2`, each chunk's `mapper.get_depth_map` and the maps' copy to the
@@ -35,6 +59,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 BENCH = os.path.dirname(os.path.abspath(__file__))
@@ -73,17 +98,21 @@ def _applies(entry: dict, cell: str) -> bool:
     return "workloads" not in entry or cell in entry["workloads"]
 
 
-def load_cell(name: str, spec: Optional[dict] = None) -> Cell:
-    """The cell named `name` of `spec` (BENCHMARK.json's contents by
-    default), with its files by name."""
-    spec = spec or _load(os.path.join(ROOT, "BENCHMARK.json"))
+def load_cell(name: str, spec_path: str = "") -> Cell:
+    """The cell named `name` of the spec at `spec_path` (BENCHMARK.json by
+    default), with its files by name (`configs/`, `mixes/`, `limits/`):
+    under benchmark/ for BENCHMARK.json, beside any other spec file (a
+    fixture such as tests/evimo2/spec.json)."""
+    where = os.path.dirname(os.path.abspath(spec_path)) if spec_path else BENCH
+    spec_path = spec_path or os.path.join(ROOT, "BENCHMARK.json")
+    spec = _load(spec_path)
     row = next((w for w in spec["workloads"] if w["name"] == name), None)
     if row is None:
-        raise KeyError(f"no workload {name!r} in BENCHMARK.json")
+        raise KeyError(f"no workload {name!r} in {spec_path}")
     return Cell(name=name,
-                config=_load(os.path.join(BENCH, "configs", row["config"] + ".json")),
-                mix=_load(os.path.join(BENCH, "mixes", row["traffic"] + ".json")),
-                limits=_load(os.path.join(BENCH, "limits", name + ".json")),
+                config=_load(os.path.join(where, "configs", row["config"] + ".json")),
+                mix=_load(os.path.join(where, "mixes", row["traffic"] + ".json")),
+                limits=_load(os.path.join(where, "limits", name + ".json")),
                 end_to_end=[m for m in spec["end_to_end"] if _applies(m, name)],
                 per_layer=[m for m in spec["per_layer"] if _applies(m, name)])
 
@@ -106,27 +135,41 @@ def forbidden_modules() -> List[str]:
 # ---------------------------------------------------------------------------
 
 
+def calibration(rig: dict):
+    """The configuration's rig as the port's calibration loaders give one
+    (`io.calib.RigCalibration`, each camera by `calib._cam`)."""
+    from dvs_mcemvs_torch.io import calib
+    from dvs_mcemvs_torch.ops import camera as camops
+
+    models = {"none": camops.NONE, "radtan": camops.PLUMB_BOB, "equidistant": camops.FISHEYE}
+    fx, fy, cx, cy = traffic.projection(rig)
+    P = [[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]]
+    cams = traffic.cameras(rig)
+    T_he = traffic.hand_eye(rig)
+    return calib.RigCalibration(
+        cams=tuple(calib._cam(c["width"], c["height"],
+                              [[c["K"][0], 0.0, c["K"][2]], [0.0, c["K"][1], c["K"][3]],
+                               [0.0, 0.0, 1.0]],
+                              c["D"], models[c["distortion"]], c["R"], P) for c in cams),
+        T_1_0=cams[1]["T_i_0"], T_2_0=cams[2]["T_i_0"] if len(cams) > 2 else None,
+        T_hand_eye=np.eye(4) if T_he is None else T_he)
+
+
 class Program:
     """The port set up as its CLI sets up a full_seq run of the preset, over
     the cell's inputs."""
 
     def __init__(self, config: dict, streams, poses, device):
         from dvs_mcemvs_torch import cli, config as cfgmod, mapper, pipeline
-        from dvs_mcemvs_torch.ops import extract, se3, trajectory as trajmod
-        from dvs_mcemvs_torch.ops.camera import PinholeCamera
-        from dvs_mcemvs_torch.ops.se3 import SE3
+        from dvs_mcemvs_torch.ops import extract, trajectory as trajmod
 
         self.cfg = cfg = cfgmod.parse_args(config["flags"])
-        rig = config["rig"]
-        cam = PinholeCamera(width=rig["width"], height=rig["height"], fx=rig["fx"],
-                            fy=rig["fy"], cx=rig["cx"], cy=rig["cy"])
         shape = mapper.DsiShape(cfg.dimX, cfg.dimY, cfg.dimZ, cfg.fov_deg, cfg.min_depth,
                                 cfg.max_depth)
-        self.mappers = [mapper.make_mapper(cam, shape, cfg.depth_sampling) for _ in range(2)]
-        traj0 = trajmod.from_arrays(*poses, device=device)
-        T_1_0 = SE3(torch.tensor([1.0, 0.0, 0.0, 0.0], device=device),
-                    torch.tensor([-rig["baseline_m"], 0.0, 0.0], device=device))
-        self.trajs = [traj0, trajmod.apply_right(traj0, se3.inverse(T_1_0))]
+        rig = calibration(config["rig"])
+        self.mappers = [mapper.make_mapper(c, shape, cfg.depth_sampling) for c in rig.cams]
+        self.trajs = cli._build_trajectories(trajmod.from_arrays(*poses, device=device), rig,
+                                             rig.num_cameras)
         self.events = [mapper.Events(x, y, t) for x, y, t in streams]
         self.opts = extract.DepthMapOptions(
             adaptive_threshold_kernel_size=cfg.adaptive_threshold_kernel_size,
@@ -282,7 +325,8 @@ REFERENCE_DEFAULTS = {"packet_size": "1024", "adaptive_threshold_kernel_size": "
                       "adaptive_threshold_c": "5", "median_filter_size": "5",
                       "max_confidence": "0", "depth_sampling": "linear",
                       "forward_looking": "false", "process_method": "1",
-                      "num_intervals": "4", "stereo_fusion": "2", "temporal_fusion": "4"}
+                      "num_intervals": "4", "stereo_fusion": "2", "temporal_fusion": "4",
+                      "dimX": "0", "dimY": "0", "fov_deg": "0"}
 
 
 class Reference:
@@ -297,10 +341,25 @@ class Reference:
         rig = config["rig"]
         self.depths = emvs.plane_depths(f["depth_sampling"], float(f["min_depth"]),
                                         float(f["max_depth"]), int(f["dimZ"]))
-        self.geo = emvs.Geometry(rig["width"], rig["height"], rig["fx"], rig["fy"],
-                                 rig["cx"], rig["cy"], self.depths, int(f["packet_size"]))
+        rig_cams = traffic.cameras(rig)
+        self.sensors = [emvs.Camera(*c["K"], c["distortion"], tuple(c["D"]),
+                                    None if c["R"] is None else tuple(c["R"].ravel()))
+                        for c in rig_cams]
+        # The DSI's virtual camera (upstream's setupDSI): P's fx on both axes,
+        # or the focal length of `fov_deg` where it is 10 degrees or more.
+        P = traffic.projection(rig)
+        dim_x = int(f["dimX"]) or rig_cams[0]["width"]
+        dim_y = int(f["dimY"]) or rig_cams[0]["height"]
+        fov = float(f["fov_deg"])
+        focal = P[0] if fov < 10 else 0.5 * dim_x / np.tan(0.5 * np.deg2rad(fov))
+        self.geo = emvs.Geometry(dim_x, dim_y, focal, P[2], P[3], self.depths,
+                                 int(f["packet_size"]))
         cam0 = emvs.Poses.from_arrays(*poses)
-        self.cams = [cam0, cam0.shifted([rig["baseline_m"], 0.0, 0.0])]
+        T_he = traffic.hand_eye(rig)
+        if T_he is not None:
+            cam0 = cam0.moved(T_he)
+        self.cams = [cam0] + [cam0.moved(traffic.rigid_inverse(c["T_i_0"]))
+                              for c in rig_cams[1:]]
         self.streams = streams
         self.method, self.intervals = int(f["process_method"]), int(f["num_intervals"])
         self.xo = emvs.ExtractOptions(int(f["adaptive_threshold_kernel_size"]),
@@ -311,8 +370,8 @@ class Reference:
                                        f["forward_looking"].lower() in ("true", "1"))
 
     def outputs(self, k: int, device, dtype=torch.float32) -> dict:
-        return emvs.run_chunk(self.geo, self.streams, self.cams, self.chunks[k], self.method,
-                              self.intervals, self.xo, device, dtype)
+        return emvs.run_chunk(self.geo, self.sensors, self.streams, self.cams, self.chunks[k],
+                              self.method, self.intervals, self.xo, device, dtype)
 
 
 def program_outputs(rec: Record) -> dict:
@@ -320,7 +379,8 @@ def program_outputs(rec: Record) -> dict:
     res = rec.res
     maps = [dict(depth=d, confidence=c, mask=m) for d, c, m in rec.maps]
     if "camera0" in res.dsis:
-        cams = [res.dsis["camera0"], res.dsis["camera1"]]
+        n = sum(k.startswith("camera") and k[6:].isdigit() for k in res.dsis)
+        cams = [res.dsis[f"camera{i}"] for i in range(n)]
         dsis = [res.fused_dsi]
     else:
         cams = [res.dsis["left_temporal"], res.dsis["right_temporal"]]
@@ -504,7 +564,8 @@ def _drive(cell, drv: Driver, prog: Program, seed, seconds, trace, device, t_sta
     smi_after = nvidia_smi(smi) if cuda else ""
     recs = list(drv.records)
     failed = sum(r.failed for r in recs)
-    per_chunk = 2 * int(mix["events_per_window"]) * prog.cfg.out_skip / prog.cfg.duration
+    per_chunk = len(prog.mappers) * int(mix["events_per_window"]) * prog.cfg.out_skip \
+        / prog.cfg.duration
     done = completed(recs, end)
     metrics_e2e = {"setup_s": setup_s,
                    "replay_mev_s": len(done) * per_chunk / seconds / 1e6}

@@ -55,9 +55,12 @@ def maps_off(prog: Dict[str, np.ndarray], ref: Dict[str, torch.Tensor],
 def numbers(prog: dict, ref: dict, depths: np.ndarray) -> Dict[str, float]:
     """The gaps of one chunk.  Both sides give "cams" (each camera's DSI or
     temporal mean) and "extractions" ([(dsi, maps)], in the same order: the
-    program's maps as host arrays)."""
+    program's maps as host arrays).  A camera missing on one side reads
+    `dsi_l1` NaN, which fails."""
+    same = len(prog["cams"]) == len(ref["cams"])
     return {
-        "dsi_l1": max(rel_l1(p, r) for p, r in zip(prog["cams"], ref["cams"])),
+        "dsi_l1": max(rel_l1(p, r) for p, r in zip(prog["cams"], ref["cams"]))
+        if same else math.nan,
         "fused_l1": max(rel_l1(p, r) for (p, _), (r, _) in
                         zip(prog["extractions"], ref["extractions"])),
         "maps_off": max(maps_off(pm, rm, depths) for (_, pm), (_, rm) in

@@ -2,21 +2,30 @@
 
 It imports nothing of the program.  From the raw inputs that the harness
 hands to both sides (the event stream of each camera as host arrays, the
-poses of camera 0 as times, quaternions and positions, the rig's
-intrinsics and baseline, the preset's flags) it works out again:
+poses as times, quaternions and positions, each camera's calibration, the
+rig's shared projection P and extrinsics, the preset's flags) it works out
+again:
 
   - the window's events, by binary search on the times;
-  - packets of `packet_size` events, each at the pose of camera 0 (or of
-    camera 0 shifted by the baseline) interpolated on SE(3) at the time of
-    the packet's middle event;
+  - each event's bearing in its camera's frame: the pixel through the
+    inverse of K and of the camera's distortion (radtan as
+    `cv::undistortPoints`, equidistant as `cv::fisheye::undistortPoints`,
+    each iterated until its step in normalised coordinates is under
+    1e-12), then the camera's rectifying R;
+  - packets of `packet_size` events, each at its camera's pose (the poses
+    composed with T_hand_eye and T_i_0^-1) interpolated on SE(3) at the
+    time of the packet's middle event;
   - the reference view: camera 0's pose at the window's end
     (`forward_looking`) or middle;
   - an exact per-event bilinear vote: each event's ray meets every depth
-    plane of the reference view, and its four bilinear weights are added
-    into the DSI (Z, H, W);
-  - the fusion of the cameras (the harmonic mean 2ab / (a + b + 0.1)) and,
-    for the temporal preset, the arithmetic mean over sub-intervals of each
-    camera's DSI and of the fused DSI, and the converse order's fusion;
+    plane of the reference view, is projected by the DSI's virtual camera
+    (P's fx on both axes, P's principal point, as upstream's `setupDSI`),
+    and its four bilinear weights are added into the DSI (Z, H, W);
+  - the fusion of the cameras (upstream's recursive harmonic-mean chain:
+    2ab / (a + b + 0.1) for two, then a = g / (n - 1), n a g_n / (a + g_n
+    + 0.1)) and, for the temporal preset, the arithmetic mean over
+    sub-intervals of each camera's DSI and of the fused DSI, and the
+    converse order's fusion;
   - the extraction: argmax over the planes, confidence normalised to 8
     bits, OpenCV's adaptive Gaussian threshold, the masked lower median of
     the plane indices, the border, the plane depths.
@@ -28,12 +37,16 @@ float32 as the preset states, or bfloat16 for the control.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 HM_EPS = 0.1
+# Undistortion: iterations stop once the largest step in normalised
+# coordinates is under STEP_TOL; one that has not by MAX_ITERS raises.
+STEP_TOL = 1e-12
+MAX_ITERS = 200
 
 
 # ---------------------------------------------------------------------------
@@ -102,9 +115,12 @@ class Poses:
         return Poses(t[order], quat_to_rot(np.asarray(q_wxyz)[order]),
                      np.asarray(p, np.float64)[order])
 
-    def shifted(self, offset) -> "Poses":
-        """The poses of a camera at `offset` (metres, in camera 0's frame)."""
-        return Poses(self.t, self.R, self.p + self.R @ np.asarray(offset, np.float64))
+    def moved(self, T) -> "Poses":
+        """The poses of a frame at T (4x4) in this one's frame: each pose
+        composed with T on the right."""
+        T = np.asarray(T, np.float64)
+        R = self.R if np.array_equal(T[:3, :3], np.eye(3)) else self.R @ T[:3, :3]
+        return Poses(self.t, R, self.p + self.R @ T[:3, 3])
 
     def at(self, tq) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(R, p, valid) at times tq: T0 exp(a log(T0^-1 T1)) on SE(3) between
@@ -132,14 +148,88 @@ class Poses:
 # ---------------------------------------------------------------------------
 
 
+def undistort_radtan(xd: torch.Tensor, yd: torch.Tensor, D) -> Tuple[torch.Tensor, ...]:
+    """Normalised coordinates of distorted ones under radtan (D = k1, k2, p1,
+    p2[, k3]): `cv::undistortPoints`'s fixed-point scheme, to convergence."""
+    k1, k2, p1, p2, k3 = (list(D) + [0.0] * 5)[:5]
+    x, y = xd, yd
+    for _ in range(MAX_ITERS):
+        r2 = x * x + y * y
+        icdist = 1.0 / (1 + ((k3 * r2 + k2) * r2 + k1) * r2)
+        dx = 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+        dy = p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+        xn, yn = (xd - dx) * icdist, (yd - dy) * icdist
+        step = float(torch.maximum(torch.abs(xn - x), torch.abs(yn - y)).max())
+        x, y = xn, yn
+        if step < STEP_TOL:
+            return x, y
+    raise ValueError(f"radtan undistortion did not converge in {MAX_ITERS} steps")
+
+
+def undistort_equidistant(xd: torch.Tensor, yd: torch.Tensor, D) -> Tuple[torch.Tensor, ...]:
+    """Normalised coordinates of distorted ones under the equidistant model
+    (D = k1..k4): `cv::fisheye::undistortPoints`'s Newton scheme on the
+    angle, to convergence."""
+    k1, k2, k3, k4 = (list(D) + [0.0] * 4)[:4]
+    theta_d = torch.clamp(torch.sqrt(xd * xd + yd * yd), max=np.pi / 2)
+    th = theta_d
+    for _ in range(MAX_ITERS):
+        t2 = th * th
+        f = th * (1 + t2 * (k1 + t2 * (k2 + t2 * (k3 + t2 * k4)))) - theta_d
+        df = 1 + t2 * (3 * k1 + t2 * (5 * k2 + t2 * (7 * k3 + t2 * 9 * k4)))
+        step = f / df
+        th = th - step
+        if float(torch.abs(step).max()) < STEP_TOL:
+            break
+    else:
+        raise ValueError(f"equidistant undistortion did not converge in {MAX_ITERS} steps")
+    scale = torch.where(theta_d > 1e-12, torch.tan(th) / torch.clamp(theta_d, min=1e-300),
+                        torch.ones_like(theta_d))
+    return xd * scale, yd * scale
+
+
+@dataclasses.dataclass(frozen=True)
+class Camera:
+    """A calibrated sensor: K (fx, fy, cx, cy) of the raw pixels, its
+    distortion (`none`; `radtan`, D = k1, k2, p1, p2[, k3]; `equidistant`,
+    D = k1..k4) and its rectifying rotation R (row-major 3x3, or None)."""
+
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    distortion: str = "none"
+    D: Tuple[float, ...] = ()
+    R: Optional[Tuple[float, ...]] = None
+
+    def rays(self, x, y, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Bearings (X, Y, Z) in float64 of raw pixels x, y in this camera's
+        frame: undistorted, then rotated by R."""
+        f64 = dict(dtype=torch.float64, device=device)
+        xn = (torch.as_tensor(x, **f64) - self.cx) / self.fx
+        yn = (torch.as_tensor(y, **f64) - self.cy) / self.fy
+        if self.distortion == "radtan":
+            xn, yn = undistort_radtan(xn, yn, self.D)
+        elif self.distortion == "equidistant":
+            xn, yn = undistort_equidistant(xn, yn, self.D)
+        elif self.distortion != "none":
+            raise ValueError(f"unknown distortion {self.distortion!r}")
+        if self.R is None:
+            return xn, yn, torch.ones_like(xn)
+        r = [float(v) for v in self.R]
+        return (r[0] * xn + r[1] * yn + r[2], r[3] * xn + r[4] * yn + r[5],
+                r[6] * xn + r[7] * yn + r[8])
+
+
 @dataclasses.dataclass(frozen=True)
 class Geometry:
-    """The rig and the DSI of the preset."""
+    """The DSI: its virtual camera at the reference view (width x height,
+    focal length f on both axes, principal point cx, cy), its plane depths,
+    and the packets of the vote."""
 
     width: int
     height: int
-    fx: float
-    fy: float
+    f: float
     cx: float
     cy: float
     depths: np.ndarray        # (Z,) plane depths of the reference view
@@ -163,11 +253,11 @@ def window(t: np.ndarray, t0: float, t1: float) -> Tuple[int, int]:
             int(np.searchsorted(t, t1, side="right")))
 
 
-def vote(geo: Geometry, x: np.ndarray, y: np.ndarray, t: np.ndarray, poses: Poses,
-         R_rv: np.ndarray, p_rv: np.ndarray, device, dtype=torch.float32,
+def vote(geo: Geometry, cam: Camera, x: np.ndarray, y: np.ndarray, t: np.ndarray,
+         poses: Poses, R_rv: np.ndarray, p_rv: np.ndarray, device, dtype=torch.float32,
          plane_block: int = 10) -> torch.Tensor:
-    """The exact bilinear vote of one camera's events into a (Z, H, W) DSI
-    of `dtype` on `device`.  Packets of `packet_size` events share the pose
+    """The exact bilinear vote of the events of camera `cam` at `poses` into
+    a (Z, H, W) DSI of `dtype` on `device`.  Packets of `packet_size` events share the pose
     at their middle event (the last event where the last packet is short);
     a packet whose time lies outside the poses does not vote."""
     E = x.shape[0]
@@ -183,17 +273,17 @@ def vote(geo: Geometry, x: np.ndarray, y: np.ndarray, t: np.ndarray, poses: Pose
     Cc = torch.as_tensor(C, **f64)
     pk = torch.as_tensor(np.repeat(np.arange(K), P)[:E], device=device)
     okw = torch.as_tensor(ok, device=device)[pk]
-    xn = (torch.as_tensor(x, **f64) - geo.cx) / geo.fx
-    yn = (torch.as_tensor(y, **f64) - geo.cy) / geo.fy
-    d = Rr[pk, :, 0] * xn[:, None] + Rr[pk, :, 1] * yn[:, None] + Rr[pk, :, 2]   # (E, 3)
+    bx, by, bz = cam.rays(x, y, device)
+    d = Rr[pk, :, 0] * bx[:, None] + Rr[pk, :, 1] * by[:, None] + \
+        Rr[pk, :, 2] * bz[:, None]                                               # (E, 3)
     c = Cc[pk]
     Z, H, W = len(geo.depths), geo.height, geo.width
     dsi = torch.zeros(Z * H * W, dtype=dtype, device=device)
     for lo in range(0, Z, plane_block):
         z = torch.as_tensor(geo.depths[lo:lo + plane_block], **f64)[:, None]   # (B, 1)
         lam = (z - c[None, :, 2]) / d[None, :, 2]
-        u = geo.fx * (c[None, :, 0] + lam * d[None, :, 0]) / z + geo.cx
-        v = geo.fy * (c[None, :, 1] + lam * d[None, :, 1]) / z + geo.cy
+        u = geo.f * (c[None, :, 0] + lam * d[None, :, 0]) / z + geo.cx
+        v = geo.f * (c[None, :, 1] + lam * d[None, :, 1]) / z + geo.cy
         x0, y0 = torch.floor(u), torch.floor(v)
         inb = (u >= 0) & (v >= 0) & (x0 + 1 < W) & (y0 + 1 < H) & okw[None]
         fx, fy = u - x0, v - y0
@@ -208,6 +298,18 @@ def vote(geo: Geometry, x: np.ndarray, y: np.ndarray, t: np.ndarray, poses: Pose
 
 def fuse_hm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return 2 * a * b / (a + b + HM_EPS)
+
+
+def fuse_hm_chain(grids: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Upstream's recursive n-ary harmonic mean of two grids or more: the
+    pair's, then for the n-th grid g, a = (the fusion so far) / (n - 1) and
+    n a g / (a + g + 0.1)."""
+    out = fuse_hm(grids[0], grids[1])
+    for k in range(2, len(grids)):
+        n = k + 1
+        a = out / float(n - 1)
+        out = float(n) * a * grids[k] / (a + grids[k] + HM_EPS)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -313,20 +415,26 @@ def chunk_times(start: float, stop: float, duration: float, out_skip: float,
     return out
 
 
-def run_chunk(geo: Geometry, streams: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],
+def run_chunk(geo: Geometry, sensors: Sequence[Camera],
+              streams: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],
               cams: Sequence[Poses], chunk: Chunk, method: int, intervals: int,
               extract_opts: ExtractOptions, device, dtype=torch.float32) -> dict:
-    """The chunk's DSIs and maps: "cams" (method 1: each camera's DSI;
-    method 2: each camera's mean over `intervals` sub-intervals of equal
-    event count) and "extractions" ([(dsi, maps)]: method 1, the cameras'
-    fusion; method 2, the mean of each sub-interval's fusion, then the
-    fusion of the two means)."""
+    """The chunk's DSIs and maps, camera i being `sensors[i]` at poses
+    `cams[i]`: "cams" (method 1: each camera's DSI; method 2, two cameras:
+    each camera's mean over `intervals` sub-intervals of equal event count)
+    and "extractions" ([(dsi, maps)]: method 1, the cameras' fusion; method
+    2, the mean of each sub-interval's fusion, then the fusion of the two
+    means)."""
+    if method not in (1, 2):
+        raise ValueError(f"process_method {method} has no reference here")
+    if method == 2 and len(cams) != 2:
+        raise ValueError("process_method 2 fuses over time for two cameras")
     R_rv, p_rv, ok = cams[0].at(chunk.ts)
     if not ok[0]:
         raise ValueError(f"reference-view time {chunk.ts} outside the poses")
     R_rv, p_rv = R_rv[0], p_rv[0]
     parts = []
-    for (x, y, t), poses in zip(streams, cams):
+    for x, y, t in streams:
         lo, hi = window(t, chunk.t0, chunk.t1)
         if method == 1:
             parts.append([(lo, hi)])
@@ -336,15 +444,14 @@ def run_chunk(geo: Geometry, streams: Sequence[Tuple[np.ndarray, np.ndarray, np.
 
     def dsi(c: int, k: int) -> torch.Tensor:
         (x, y, t), (lo, hi) = streams[c], parts[c][k]
-        return vote(geo, x[lo:hi], y[lo:hi], t[lo:hi], cams[c], R_rv, p_rv, device, dtype)
+        return vote(geo, sensors[c], x[lo:hi], y[lo:hi], t[lo:hi], cams[c], R_rv, p_rv,
+                    device, dtype)
 
     if method == 1:
-        c0, c1 = dsi(0, 0), dsi(1, 0)
-        fused = fuse_hm(c0, c1)
-        return {"cams": [c0, c1],
+        each = [dsi(c, 0) for c in range(len(cams))]
+        fused = fuse_hm_chain(each)
+        return {"cams": each,
                 "extractions": [(fused, extract(fused, geo.depths, extract_opts))]}
-    if method != 2:
-        raise ValueError(f"process_method {method} has no reference here")
     left = right = fused = None
     for k in range(intervals):
         d0, d1 = dsi(0, k), dsi(1, k)

@@ -1,6 +1,7 @@
 """Run one cell of the benchmark once and print its result line.
 
-    python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
+    python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1> \
+        [--spec PATH]
 
 From the root of a checkout, on a machine with the cards the cell asks
 for.  Progress, clocks and power, the window's counts and each judged
@@ -10,7 +11,9 @@ result, one JSON object: `correct`, `attempted`, `failed`, `metrics`
 `device`, with --trace 1 `breakdown`, and last `check`, each number the
 output check compared beside its limit.  Without the cards, or when a JAX
 module is loaded once the window has closed, it exits non-zero and prints
-no result.
+no result.  `--spec` runs a cell of another spec than BENCHMARK.json, with
+its configs/, mixes/ and limits/ beside that file (a fixture such as
+benchmark/tests/evimo2/spec.json).
 """
 
 import time
@@ -37,6 +40,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    ap.add_argument("--spec", default="")
     args = ap.parse_args(argv)
 
     def log(msg: str) -> None:
@@ -49,16 +53,17 @@ def main(argv=None) -> int:
 
     from benchmark import harness
 
-    spec = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
+    spec_path = args.spec or os.path.join(ROOT, "BENCHMARK.json")
+    spec = json.load(open(spec_path))
     row = next((w for w in spec["workloads"] if w["name"] == args.workload), None)
     if row is None:
-        log(f"no workload {args.workload!r} in BENCHMARK.json")
+        log(f"no workload {args.workload!r} in {spec_path}")
         return 2
     if not torch.cuda.is_available() or torch.cuda.device_count() < row["chips"]:
         log(f"{args.workload} needs {row['chips']} CUDA device(s); "
             f"found {torch.cuda.device_count() if torch.cuda.is_available() else 0}")
         return 2
-    cell = harness.load_cell(args.workload)
+    cell = harness.load_cell(args.workload, args.spec)
     out = harness.run(cell, args.seed, args.seconds, bool(args.trace),
                       torch.device("cuda", 0), t_start=T_START, log=log)
     found = harness.forbidden_modules()

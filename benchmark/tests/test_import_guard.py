@@ -46,6 +46,22 @@ def test_reference_imports_nothing_of_the_program():
     assert "dvs_mcemvs_torch" not in loaded and not loaded & set(FORBIDDEN)
 
 
+def test_calibrated_rig_reference_imports_nothing_of_the_program():
+    """The reference's side of a run of the three-camera distorted rig (the
+    streams, the undistortion, the rotated extrinsics, the n-ary fusion and
+    the extraction) loads nothing of the program."""
+    code = ("from benchmark import harness\n"
+            "from benchmark.tests import _cells\n"
+            "from benchmark.traffic import generate as traffic\n"
+            "c = _cells.tiny(_cells.evimo2())\n"
+            "s = traffic.generate(c.config, c.mix, 3, 'cpu')\n"
+            "ref = harness.Reference(c.config, s, traffic.pose_arrays(c.config))\n"
+            "out = ref.outputs(0, 'cpu')\n"
+            "assert len(out['cams']) == 3\n")
+    loaded = _loaded_after(code)
+    assert "dvs_mcemvs_torch" not in loaded and not loaded & set(FORBIDDEN)
+
+
 def _imports(path: str) -> set:
     tree = ast.parse(open(path).read())
     names = set()

@@ -7,8 +7,11 @@ import torch
 from benchmark.reference import emvs
 
 
+CAM = emvs.Camera(fx=70.0, fy=70.0, cx=39.5, cy=29.5)
+
+
 def _geo(depths):
-    return emvs.Geometry(width=80, height=60, fx=70.0, fy=70.0, cx=39.5, cy=29.5,
+    return emvs.Geometry(width=80, height=60, f=70.0, cx=39.5, cy=29.5,
                          depths=np.asarray(depths, np.float64), packet_size=64)
 
 
@@ -25,18 +28,18 @@ def test_plane_votes_peak_at_its_depth():
     cam_x = 1.0 * t - 0.5
     which = rng.integers(0, 40, t.shape[0])
     X = pts[which] - np.stack([cam_x, 0 * t, 0 * t], -1)
-    u = geo.fx * X[:, 0] / X[:, 2] + geo.cx
-    v = geo.fy * X[:, 1] / X[:, 2] + geo.cy
+    u = geo.f * X[:, 0] / X[:, 2] + geo.cx
+    v = geo.f * X[:, 1] / X[:, 2] + geo.cy
     ok = (u >= 0) & (u < 79) & (v >= 0) & (v < 59)
     x, y, t = np.round(u[ok]).astype(np.int32), np.round(v[ok]).astype(np.int32), t[ok]
     tp = np.linspace(-0.1, 1.1, 13)
     poses = emvs.Poses.from_arrays(tp, np.tile([1.0, 0, 0, 0], (13, 1)),
                                    np.stack([1.0 * tp - 0.5, 0 * tp, 0 * tp], -1))
     R_rv, p_rv, _ = poses.at(0.5)
-    dsi = emvs.vote(geo, x, y, t, poses, R_rv[0], p_rv[0], "cpu")
+    dsi = emvs.vote(geo, CAM, x, y, t, poses, R_rv[0], p_rv[0], "cpu")
     idx = dsi.argmax(0)
-    u0 = np.round(geo.fx * pts[:, 0] / pts[:, 2] + geo.cx).astype(int)
-    v0 = np.round(geo.fy * pts[:, 1] / pts[:, 2] + geo.cy).astype(int)
+    u0 = np.round(geo.f * pts[:, 0] / pts[:, 2] + geo.cx).astype(int)
+    v0 = np.round(geo.f * pts[:, 1] / pts[:, 2] + geo.cy).astype(int)
     seen = (u0 >= 0) & (u0 < 80) & (v0 >= 0) & (v0 < 60)
     assert seen.sum() > 20
     hits = np.abs(idx[v0[seen], u0[seen]].numpy() - k_true) <= 1

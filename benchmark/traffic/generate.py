@@ -1,9 +1,10 @@
-"""The benchmark's one traffic generator: event streams of a stereo rig.
+"""The benchmark's one traffic generator: event streams of a calibrated rig.
 
-A configuration file fixes the rig (`rig`: intrinsics, baseline, poses of
-camera 0 from a file or a parametric flight) and the scene (`scene`); a mix
-file fixes the events a camera a window.  From `--seed` this builds each
-camera's stream over the preset's segment [start_time_s, stop_time_s):
+A configuration file fixes the rig (`rig`: its cameras, the poses from a
+file or a parametric flight; the schema is in `harness.py`'s docstring)
+and the scene (`scene`); a mix file fixes the events a camera a window.
+From `--seed` this builds each camera's stream over the preset's segment
+[start_time_s, stop_time_s):
 
   - the segment is cut into strides of `out_skip` seconds; every stride
     holds exactly events_per_window / (duration / out_skip) events of each
@@ -11,12 +12,19 @@ camera's stream over the preset's segment [start_time_s, stop_time_s):
     so every full_seq window holds exactly `events_per_window` events;
   - the scene is utils/golden.py's stripe scene (`make_golden_scene`,
     lines 114-144): fronto-parallel planes at `stripe_depths_m`, each a
-    vertical stripe of the image with `pad_px` of overscan, points uniform
-    over it, anchored anew at camera 0's pose in the middle of each
-    `slot_s` of the segment;
-  - an event is a point of its time's slot seen from the camera's pose at
-    its time, rounded to a pixel (golden.simulate_events_se3, lines
-    235-274); points behind 0.5 m or off the sensor are drawn again.
+    vertical stripe of camera 0's image (its K, no distortion) with
+    `pad_px` of overscan, points uniform over it, anchored anew at camera
+    0's pose in the middle of each `slot_s` of the segment;
+  - an event is a point of its time's slot seen from its camera's pose at
+    its time (golden.simulate_events_se3, lines 235-274): camera i sits at
+    the poses composed with T_hand_eye and T_i_0^-1, as the port's CLI
+    chains them (`cli._build_trajectories`); the point is projected with
+    the camera's K through its forward distortion model in closed form
+    (radtan as OpenCV's `projectPoints`, equidistant as `cv::fisheye`'s),
+    after the transpose of its rectifying R where it has one, and rounded
+    to a pixel.  Points behind 0.5 m, past the lens's monotone
+    range (the radial map's derivative not positive) or off the camera's
+    sensor are drawn again.
 
 Poses for the generator are interpolated linearly (positions) and by
 normalised linear interpolation (rotations); the program and the
@@ -31,7 +39,7 @@ from __future__ import annotations
 import json
 import math
 import os
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,6 +88,79 @@ def pose_arrays(config: dict) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     return t, q, p
 
 
+DISTORTIONS = ("none", "radtan", "equidistant")
+
+
+def cameras(rig: dict) -> List[dict]:
+    """The rig's cameras, camera 0 first, each as {width, height, K (fx,
+    fy, cx, cy), distortion, D, R (3x3 or None), T_i_0 (4x4, from camera
+    0's frame)}."""
+    out = []
+    for i, c in enumerate(rig["cameras"]):
+        model = c.get("distortion", "none")
+        if model not in DISTORTIONS:
+            raise ValueError(f"camera {i}: distortion {model!r} is not one of {DISTORTIONS}")
+        T = np.asarray(c.get("T_i_0", np.eye(4)), np.float64).reshape(4, 4)
+        if i == 0 and not np.array_equal(T, np.eye(4)):
+            raise ValueError("camera 0's T_i_0 is the identity")
+        if len(c.get("D", [])) > {"none": 0, "radtan": 5, "equidistant": 4}[model]:
+            raise ValueError(f"camera {i}: too many coefficients for {model}")
+        R = c.get("R")
+        out.append(dict(width=int(c["width"]), height=int(c["height"]),
+                        K=[float(v) for v in c["K"]], distortion=model,
+                        D=[float(d) for d in c.get("D", [])],
+                        R=None if R is None else np.asarray(R, np.float64).reshape(3, 3),
+                        T_i_0=T))
+    if len(out) not in (2, 3):
+        raise ValueError("a rig has two or three cameras, as the port's RigCalibration")
+    return out
+
+
+def projection(rig: dict) -> List[float]:
+    """The rig's shared projection P as (fx, fy, cx, cy)."""
+    return [float(v) for v in rig["P"]]
+
+
+def hand_eye(rig: dict) -> Optional[np.ndarray]:
+    """T_hand_eye (4x4: camera 0 in the frame of the poses), None where the
+    rig gives none (the identity)."""
+    T = rig.get("T_hand_eye")
+    return None if T is None else np.asarray(T, np.float64).reshape(4, 4)
+
+
+def rigid_inverse(T: np.ndarray) -> np.ndarray:
+    """The inverse of a 4x4 rigid transform, [R^T, -R^T t]."""
+    out = np.eye(4)
+    out[:3, :3] = T[:3, :3].T
+    out[:3, 3] = -(T[:3, :3].T @ T[:3, 3])
+    return out
+
+
+def distort(model: str, D, x: torch.Tensor, y: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Normalised coordinates through the forward model: (xd, yd, and where
+    the lens is monotone).  radtan: D = k1, k2, p1, p2[, k3], OpenCV's
+    `projectPoints`; equidistant: D = k1..k4, `cv::fisheye::projectPoints`."""
+    if model == "radtan":
+        k1, k2, p1, p2, k3 = (list(D) + [0.0] * 5)[:5]
+        r2 = x * x + y * y
+        radial = 1 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        xd = x * radial + 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+        yd = y * radial + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+        slope = 1 + r2 * (3 * k1 + r2 * (5 * k2 + r2 * 7 * k3))
+        return xd, yd, slope > 0
+    if model == "equidistant":
+        k1, k2, k3, k4 = (list(D) + [0.0] * 4)[:4]
+        r = torch.sqrt(x * x + y * y)
+        th = torch.atan(r)
+        t2 = th * th
+        thd = th * (1 + t2 * (k1 + t2 * (k2 + t2 * (k3 + t2 * k4))))
+        scale = torch.where(r > 0, thd / torch.clamp(r, min=1e-300), torch.ones_like(r))
+        slope = 1 + t2 * (3 * k1 + t2 * (5 * k2 + t2 * (7 * k3 + t2 * 9 * k4)))
+        return x * scale, y * scale, slope > 0
+    raise ValueError(f"no forward model for distortion {model!r}")
+
+
 def _rot(q: torch.Tensor) -> torch.Tensor:
     q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
     w, x, y, z = q.unbind(-1)
@@ -110,12 +191,13 @@ class _Motion:
         return _rot(self.q[i0] * (1 - a) + self.q[i1] * a), p
 
 
-def _stripe_points(scene: dict, rig: dict, n_slots: int, gen, device) -> torch.Tensor:
+def _stripe_points(scene: dict, cam0: dict, n_slots: int, gen, device) -> torch.Tensor:
     """(n_slots, S * points_per_stripe, 3) points in the anchor camera's
-    frame: stripe s spans its column band of the image (the outer stripes
-    `pad_px` wider, the inner ones 2 px) and the rows with `pad_px` of
-    overscan, at depth stripe_depths_m[s]."""
-    W, H, fx, fy, cx, cy = (rig[k] for k in ("width", "height", "fx", "fy", "cx", "cy"))
+    frame: stripe s spans its column band of camera 0's image (the outer
+    stripes `pad_px` wider, the inner ones 2 px) and the rows with `pad_px`
+    of overscan, at depth stripe_depths_m[s]."""
+    W, H = cam0["width"], cam0["height"]
+    fx, fy, cx, cy = cam0["K"]
     depths = scene["stripe_depths_m"]
     S, n, pad = len(depths), scene["points_per_stripe"], scene["pad_px"]
     sw = W / S
@@ -153,16 +235,30 @@ def generate(config: dict, mix: dict, seed: int, device) -> List[Tuple[np.ndarra
                             dtype=torch.float64, device=device)
     t_anchor = torch.clamp(t_anchor, max=stop)
     R_a, p_a = motion.at(t_anchor)
-    local = _stripe_points(scene, rig, n_slots, gen, device)
+    cams = cameras(rig)
+    T_he = hand_eye(rig)
+    if T_he is not None:
+        p_a = p_a + R_a @ torch.as_tensor(T_he[:3, 3], dtype=torch.float64, device=device)
+        R_a = R_a @ torch.as_tensor(T_he[:3, :3], dtype=torch.float64, device=device)
+    local = _stripe_points(scene, cams[0], n_slots, gen, device)
     world = torch.einsum("sij,snj->sni", R_a, local) + p_a[:, None, :]
-    W, H = rig["width"], rig["height"]
     cands = per_stride * OVERSAMPLE
     batch = max(1, BATCH_EVENTS // cands)
     f64 = dict(dtype=torch.float64, device=device, generator=gen)
     streams = []
-    for cam in range(2):
-        offset = torch.tensor([cam * rig["baseline_m"], 0.0, 0.0], dtype=torch.float64,
-                              device=device)
+    for cam in cams:
+        # Camera i in the frame of the poses: T_hand_eye T_i_0^-1; its raw
+        # sensor turned by R^T, as the reference's bearings are R times the
+        # undistorted pixel.
+        M = rigid_inverse(cam["T_i_0"])
+        if T_he is not None:
+            M = T_he @ M
+        offset = torch.as_tensor(M[:3, 3], dtype=torch.float64, device=device)
+        rot = M[:3, :3] if cam["R"] is None else M[:3, :3] @ cam["R"]
+        turn = None if np.array_equal(rot, np.eye(3)) else \
+            torch.as_tensor(rot, dtype=torch.float64, device=device)
+        W, H = cam["width"], cam["height"]
+        fx, fy, cx, cy = cam["K"]
         xs, ys, ts = [], [], []
         for b0 in range(0, n_strides, batch):
             nb = min(batch, n_strides - b0)
@@ -175,10 +271,19 @@ def generate(config: dict, mix: dict, seed: int, device) -> List[Tuple[np.ndarra
             R = R.reshape(nb, cands, 3, 3)
             c = p.reshape(nb, cands, 3) + torch.einsum("bkij,j->bki", R, offset)
             rel = torch.einsum("bkji,bkj->bki", R, X - c)
+            if turn is not None:
+                rel = torch.einsum("ji,bkj->bki", turn, rel)
             z = rel[..., 2]
-            u = rig["fx"] * rel[..., 0] / z + rig["cx"]
-            v = rig["fy"] * rel[..., 1] / z + rig["cy"]
-            seen = (z > MIN_Z) & (u >= 0) & (u < W - 1) & (v >= 0) & (v < H - 1)
+            if cam["distortion"] == "none":
+                u = fx * rel[..., 0] / z + cx
+                v = fy * rel[..., 1] / z + cy
+                lens = True
+            else:
+                xd, yd, lens = distort(cam["distortion"], cam["D"], rel[..., 0] / z,
+                                       rel[..., 1] / z)
+                u = fx * xd + cx
+                v = fy * yd + cy
+            seen = (z > MIN_Z) & lens & (u >= 0) & (u < W - 1) & (v >= 0) & (v < H - 1)
             rank = torch.cumsum(seen.long(), 1)
             if int(rank[:, -1].min()) < per_stride:
                 raise ValueError("the scene leaves too few points in view for a stride")
